@@ -1,0 +1,169 @@
+"""Stacked-LSTM actor-critic (the bp5 CustomLSTMPolicy), batched.
+
+Port of ``models/lstm.py``: separate policy and value towers, each a stack of
+LSTM(48) layers fed the raw 35-d observation, a linear value head and a
+DiagGaussian policy head with a learned state-independent log-std. Gate order
+is [input, forget, output, candidate]; the packed recurrent state is [c, h]
+per layer, pi tower first, then the value tower (CustomerLstmNN.py:112-134).
+
+Every cell of :func:`_tower` goes through :func:`..ops.lstm_cuda.lstm_cell`,
+the hand-written CUDA kernel on the card; :func:`lstm_cell` here is its plain
+PyTorch version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Sequence
+
+import torch
+
+from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
+from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import lstm_cuda
+
+LOG2PI = math.log(2.0 * math.pi)
+
+
+@dataclasses.dataclass
+class LSTMWeights:
+    wx: torch.Tensor  # (in, 4h)
+    wh: torch.Tensor  # (h, 4h)
+    b: torch.Tensor   # (4h,)
+
+
+@dataclasses.dataclass
+class PolicyParams:
+    """Same field names and layouts as the JAX package's ``PolicyParams``."""
+    pi_lstm: tuple[LSTMWeights, ...]
+    v_lstm: tuple[LSTMWeights, ...]
+    pi_w: torch.Tensor    # (h, act)
+    pi_b: torch.Tensor    # (act,)
+    logstd: torch.Tensor  # (act,)
+    vf_w: torch.Tensor    # (h, 1)
+    vf_b: torch.Tensor    # (1,)
+
+
+def state_size(n_lstm: Sequence[int]) -> int:
+    """Total recurrent state (c and h for both towers): sum(n)*2*2."""
+    return sum(n_lstm) * 4
+
+
+def _ortho(gen: torch.Generator, shape, scale, device):
+    a = torch.randn(shape if shape[0] >= shape[1] else shape[::-1], generator=gen,
+                    device=device, dtype=dev_mod.DTYPE)
+    q, r = torch.linalg.qr(a)
+    q = q * torch.sign(torch.diagonal(r))
+    q = q if shape[0] >= shape[1] else q.T
+    return scale * q[: shape[0], : shape[1]]
+
+
+def init(gen: torch.Generator, obs_dim: int = 35, act_dim: int = 12,
+         n_lstm: Sequence[int] = (48, 48), device=None) -> PolicyParams:
+    """Orthogonal init matching stable-baselines defaults (lstm init_scale=1,
+    vf init_scale=1, pi head init_scale=0.01, logstd=0). ``gen`` must live on
+    ``device``."""
+    device = dev_mod.resolve(device)
+
+    def make_stack():
+        stack, d = [], obs_dim
+        for h in n_lstm:
+            stack.append(LSTMWeights(wx=_ortho(gen, (d, 4 * h), 1.0, device),
+                                     wh=_ortho(gen, (h, 4 * h), 1.0, device),
+                                     b=torch.zeros(4 * h, device=device)))
+            d = h
+        return tuple(stack)
+
+    pi_stack, v_stack = make_stack(), make_stack()
+    h_last = n_lstm[-1]
+    return PolicyParams(
+        pi_lstm=pi_stack, v_lstm=v_stack,
+        pi_w=_ortho(gen, (h_last, act_dim), 0.01, device),
+        pi_b=torch.zeros(act_dim, device=device), logstd=torch.zeros(act_dim, device=device),
+        vf_w=_ortho(gen, (h_last, 1), 1.0, device), vf_b=torch.zeros(1, device=device))
+
+
+def lstm_cell(w: LSTMWeights, x: torch.Tensor, c: torch.Tensor, h: torch.Tensor):
+    """One LSTM step, gate order [i, f, o, g] (CustomerLstmNN.py:119-126).
+    The plain version of the CUDA kernel in ops/lstm_cuda.py."""
+    n = w.wh.shape[0]
+    gates = x @ w.wx + h @ w.wh + w.b
+    i = torch.sigmoid(gates[..., 0 * n:1 * n])
+    f = torch.sigmoid(gates[..., 1 * n:2 * n])
+    o = torch.sigmoid(gates[..., 2 * n:3 * n])
+    g = torch.tanh(gates[..., 3 * n:4 * n])
+    c_new = f * c + i * g
+    h_new = o * torch.tanh(c_new)
+    return c_new, h_new
+
+
+def _split_state(params: PolicyParams, state: torch.Tensor):
+    """(..., S) packed state -> list of (c, h) per layer, pi then v."""
+    sizes = [w.wh.shape[0] for w in params.pi_lstm] + [w.wh.shape[0] for w in params.v_lstm]
+    out, off = [], 0
+    for n in sizes:
+        out.append((state[..., off:off + n], state[..., off + n:off + 2 * n]))
+        off += 2 * n
+    return out
+
+
+def _tower(stack, chs, x, mask):
+    """Run one tower; mask resets state *before* the cell (a2c.utils.lstm)."""
+    new_chs = []
+    h_in = x
+    keep = (1.0 - mask)[..., None]
+    for w, (c, h) in zip(stack, chs):
+        c, h = c * keep, h * keep
+        c, h = lstm_cuda.lstm_cell(w, h_in, c, h)
+        new_chs.append((c, h))
+        h_in = h
+    return h_in, new_chs
+
+
+class ForwardOut(NamedTuple):
+    mean: torch.Tensor      # (B, act)
+    value: torch.Tensor     # (B,)
+    state: torch.Tensor     # (B, S) new packed recurrent state
+    logstd: torch.Tensor    # (act,)
+
+
+def forward(params: PolicyParams, obs: torch.Tensor, state: torch.Tensor,
+            done: torch.Tensor) -> ForwardOut:
+    """Single-step forward (act model). obs (B, 35), state (B, S), done (B,):
+    the done mask of the *previous* step resets the state."""
+    chs = _split_state(params, state)
+    n_pi = len(params.pi_lstm)
+    mask = done.to(obs.dtype)
+    obs = obs.contiguous()
+    pi_latent, pi_chs = _tower(params.pi_lstm, chs[:n_pi], obs, mask)
+    v_latent, v_chs = _tower(params.v_lstm, chs[n_pi:], obs, mask)
+    mean = pi_latent @ params.pi_w + params.pi_b
+    value = (v_latent @ params.vf_w + params.vf_b)[..., 0]
+    packed = torch.cat([t for ch in pi_chs + v_chs for t in ch], dim=-1)
+    return ForwardOut(mean=mean, value=value, state=packed, logstd=params.logstd)
+
+
+# --- DiagGaussian distribution ops (stable-baselines distributions parity) ----
+
+def sample(gen: torch.Generator, mean: torch.Tensor, logstd: torch.Tensor) -> torch.Tensor:
+    noise = torch.randn(mean.shape, generator=gen, device=mean.device, dtype=mean.dtype)
+    return mean + torch.exp(logstd) * noise
+
+
+def neglogp(mean: torch.Tensor, logstd: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+    z = (action - mean) / torch.exp(logstd)
+    return (0.5 * torch.sum(z * z, dim=-1)
+            + 0.5 * LOG2PI * action.shape[-1]
+            + torch.sum(logstd, dim=-1))
+
+
+def entropy(logstd: torch.Tensor) -> torch.Tensor:
+    return torch.sum(logstd + 0.5 * (LOG2PI + 1.0), dim=-1)
+
+
+def deterministic_action(params: PolicyParams, obs: torch.Tensor,
+                         state: torch.Tensor, done: torch.Tensor):
+    """Deployment predict: clipped deterministic action
+    (CustomerLstmNN.predict clips to +-1, CustomerLstmNN.py:133-134)."""
+    out = forward(params, obs, state, done)
+    return torch.clamp(out.mean, -1.0, 1.0), out.state

@@ -1,0 +1,110 @@
+"""PyTorch port: the LSTM cell and the actor-critic against the JAX package.
+
+The cell is compared with JAX's ``lstm_cell`` and with the Pallas cell run in
+interpret mode (as tests/test_ops.py:72-86 does); the policy with the
+in-repo flagship artifact loaded by both packages' loaders. Inputs come from
+numpy with a seed. The CUDA kernel (ops/lstm_cuda) is held against the plain
+cell on the card in tests/test_torch_kernels.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from high_speed_quadrupedal_locomotion_by_irrl_torch.models import io as tio
+from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm as tlstm
+from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import lstm_cuda
+from high_speed_quadrupedal_locomotion_by_irrl_tpu.models import io as jio
+from high_speed_quadrupedal_locomotion_by_irrl_tpu.models import lstm as jlstm
+from high_speed_quadrupedal_locomotion_by_irrl_tpu.ops.lstm_pallas import fused_lstm_cell
+
+torch.set_num_threads(1)
+
+ARTIFACT = "artifacts/irrl_tpu_relaxed_4e8"
+
+
+def _cell_inputs(B, d, n, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0: (scale * rng.normal(size=s)).astype(np.float32)  # noqa: E731
+    return dict(wx=f(d, 4 * n, scale=0.2), wh=f(n, 4 * n, scale=0.2), b=f(4 * n, scale=0.1),
+                x=f(B, d), c=f(B, n), h=f(B, n))
+
+
+@pytest.mark.parametrize("d", [35, 48])
+def test_lstm_cell_matches_jax_and_pallas_interpret(d):
+    a = _cell_inputs(64, d, 48, d)
+    jw = jlstm.LSTMWeights(wx=jnp.asarray(a["wx"]), wh=jnp.asarray(a["wh"]), b=jnp.asarray(a["b"]))
+    tw = tlstm.LSTMWeights(wx=torch.from_numpy(a["wx"]), wh=torch.from_numpy(a["wh"]),
+                           b=torch.from_numpy(a["b"]))
+    jx, jc, jh = (jnp.asarray(a[k]) for k in "xch")
+    tx, tc, th = (torch.from_numpy(a[k]) for k in "xch")
+    c_ref, h_ref = jlstm.lstm_cell(jw, jx, jc, jh)
+    c_pl, h_pl = fused_lstm_cell(jw, jx, jc, jh, interpret=True)
+    for c, h in (tlstm.lstm_cell(tw, tx, tc, th), lstm_cuda.lstm_cell(tw, tx, tc, th)):
+        # f32 gate products of length <= 96 summed in another order
+        for want_c, want_h in ((c_ref, h_ref), (c_pl, h_pl)):
+            np.testing.assert_allclose(c.numpy(), np.asarray(want_c), atol=1e-5)
+            np.testing.assert_allclose(h.numpy(), np.asarray(want_h), atol=1e-5)
+
+
+def test_loader_matches_jax_loader():
+    jp = jax.tree.map(np.asarray, jio.load_bp5_csv(ARTIFACT))
+    tp = tio.load_bp5_csv(ARTIFACT, device="cpu")
+    carried = tio.policy_params_from_numpy(jp, device="cpu")
+    for got in (tp, carried):
+        for tw, jw in zip(got.pi_lstm + got.v_lstm, jp.pi_lstm + jp.v_lstm):
+            for k in ("wx", "wh", "b"):
+                np.testing.assert_array_equal(getattr(tw, k).numpy(), getattr(jw, k))
+        for k in ("pi_w", "pi_b", "logstd", "vf_w", "vf_b"):
+            np.testing.assert_array_equal(getattr(got, k).numpy(), getattr(jp, k), err_msg=k)
+
+
+def test_forward_and_action_match_jax_over_sequence():
+    """20 steps of recurrent forward with a done in the middle."""
+    B, T = 4, 20
+    rng = np.random.default_rng(7)
+    obs = rng.normal(size=(T, B, 35)).astype(np.float32)
+    done = np.zeros((T, B), np.float32)
+    done[10, :2] = 1.0
+    jp = jio.load_bp5_csv(ARTIFACT)
+    tp = tio.load_bp5_csv(ARTIFACT, device="cpu")
+    S = jlstm.state_size([48, 48])
+    js, ts = jnp.zeros((B, S)), torch.zeros(B, S)
+    for t in range(T):
+        jo = jlstm.forward(jp, jnp.asarray(obs[t]), js, jnp.asarray(done[t]))
+        ja, _ = jlstm.deterministic_action(jp, jnp.asarray(obs[t]), js, jnp.asarray(done[t]))
+        to = tlstm.forward(tp, torch.from_numpy(obs[t]), ts, torch.from_numpy(done[t]))
+        ta, ts2 = tlstm.deterministic_action(tp, torch.from_numpy(obs[t]), ts,
+                                             torch.from_numpy(done[t]))
+        # f32 products summed in another order, carried through 20 steps
+        np.testing.assert_allclose(to.mean.numpy(), np.asarray(jo.mean), atol=1e-5)
+        np.testing.assert_allclose(to.value.numpy(), np.asarray(jo.value), atol=1e-4)
+        np.testing.assert_allclose(to.state.numpy(), np.asarray(jo.state), atol=1e-5)
+        np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=1e-5)
+        assert torch.equal(ts2, to.state)
+        js, ts = jo.state, to.state
+
+
+def test_distribution_ops_match_jax():
+    rng = np.random.default_rng(3)
+    mean, action = (rng.normal(size=(6, 12)).astype(np.float32) for _ in range(2))
+    logstd = (0.3 * rng.normal(size=12)).astype(np.float32)
+    np.testing.assert_allclose(
+        tlstm.neglogp(*(torch.from_numpy(x) for x in (mean, logstd, action))).numpy(),
+        np.asarray(jlstm.neglogp(mean, logstd, action)), rtol=1e-6)
+    np.testing.assert_allclose(tlstm.entropy(torch.from_numpy(logstd)).numpy(),
+                               np.asarray(jlstm.entropy(logstd)), rtol=1e-6)
+    gen = torch.Generator().manual_seed(0)
+    draws = tlstm.sample(gen, torch.zeros(20000, 12), torch.from_numpy(logstd))
+    np.testing.assert_allclose(draws.std(0).numpy(), np.exp(logstd), rtol=0.05)
+
+
+def test_init_shapes_and_orthogonality():
+    p = tlstm.init(torch.Generator().manual_seed(0), device="cpu")
+    assert p.pi_lstm[0].wx.shape == (35, 192) and p.v_lstm[1].wh.shape == (48, 192)
+    wh = p.pi_lstm[0].wh
+    torch.testing.assert_close(wh @ wh.T, torch.eye(48), atol=1e-5, rtol=0)
+    assert p.pi_w.shape == (48, 12) and p.vf_w.shape == (48, 1)
+
