@@ -2,8 +2,9 @@
 
 Port of ``envs/blackpanther.py`` (the reference's
 ``BlackPanther_V55/Environment.hpp``): reset, the PD-to-torque pipeline with
-the speed-dependent motor envelope, 8 physics substeps a control step through
-the hand-written CUDA kernel (:mod:`..ops.phys_cuda`), observation, the
+the speed-dependent motor envelope (:mod:`..ops.pd_torque`) and 8 physics
+substeps a control step, fused into one call of the hand-written CUDA kernel
+(:func:`..ops.phys_cuda.control_step`), observation, the
 8-term DeepMimic reward, termination, online references and the branchless
 auto-reset. Every field of :class:`EnvState` has a leading env axis; a single
 env is a batch of one. Randomness comes from a ``torch.Generator`` that lives
@@ -32,7 +33,7 @@ import torch
 
 from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch.config import EnvConfig
-from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_cuda
+from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import pd_torque, phys_cuda
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as lanes
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
 from high_speed_quadrupedal_locomotion_by_irrl_torch.robot import gait
@@ -105,9 +106,6 @@ class _Consts(NamedTuple):
     obs_mean: torch.Tensor      # (35,)
     obs_std: torch.Tensor       # (35,)
     action_mean: torch.Tensor   # (12,)
-    knee_ratio: torch.Tensor    # (12,)
-    kp: torch.Tensor            # (12,)
-    kd: torch.Tensor            # (12,)
     torque_limit: torch.Tensor  # (12,)
     phase_offsets: torch.Tensor  # (4,)
     init_joint_ref: torch.Tensor  # (12,)
@@ -131,12 +129,9 @@ def _consts(cfg: EnvConfig, device: torch.device) -> _Consts:
     """Read-only constant tensors, made once per config and device so the
     step issues no host-to-device copies."""
     t = lambda x: dev_mod.tensor(x, device)  # noqa: E731
-    gain = np.array([cfg.abad_ratio, 1.0, 1.0] * 4)
     return _Consts(
         obs_mean=t(_obs_mean_np(cfg)), obs_std=t(_obs_std_np()),
         action_mean=t(mdl.stand_gc(cfg.abad)[7:]),
-        knee_ratio=t([1.0, 1.0, mdl.KNEE_RATIO] * 4),
-        kp=t(cfg.stiffness * gain), kd=t(cfg.damping * gain),
         torque_limit=t(mdl.TORQUE_LIMIT_J),
         phase_offsets=t(cfg.phase_offsets),
         init_joint_ref=t(np.array([-1.0, 0, 0, 1.0, 0, 0, -1.0, 0, 0, 1.0, 0, 0]) * cfg.abad),
@@ -157,45 +152,16 @@ def action_mean(cfg: EnvConfig, device=None) -> torch.Tensor:
     return _consts(cfg, dev_mod.resolve(device)).action_mean
 
 
-# --- torque clamp (Environment.hpp:1273-1312) --------------------------------
+# --- PD torque pipeline: the functions live in ops/pd_torque.py, shared with
+# the physics wrapper; these keep the JAX package's names and signatures -------
+
+real_torque = pd_torque.real_torque
+
 
 def torque_clamp(cfg: EnvConfig, torque: torch.Tensor, qd: torch.Tensor) -> torch.Tensor:
-    """Speed-dependent motor-envelope clamp on the (..., 12) joint torques."""
-    kr = _consts(cfg, torque.device).knee_ratio
-    tm, cs, ms = cfg.motor_max_torque, cfg.motor_critical_speed, cfg.motor_max_speed
-    r = tm / (ms - cs)
-    w = qd * kr
-    up = torch.where(w > cs, tm - (w - cs) * r, torch.full_like(w, tm)) * kr
-    low = torch.where(w < -cs, (-ms - w) / (-ms + cs) * -tm, torch.full_like(w, -tm)) * kr
-    return torch.minimum(torch.maximum(torque, low), up)
-
-
-# --- electrical motor model (RealTorque, Environment.hpp:161-208) ------------
-
-_MOTOR_KT, _MOTOR_R, _MOTOR_TAU_MAX, _MOTOR_BATTERY_V = 0.05, 0.173, 3.0, 24.0
-_MOTOR_DAMPING, _MOTOR_FRICTION = 0.01, 0.2
-
-
-@functools.lru_cache(maxsize=4)
-def _gear(device: torch.device) -> torch.Tensor:
-    return dev_mod.tensor(mdl.GEAR_RATIO, device)
-
-
-def real_torque(torque: torch.Tensor, qd: torch.Tensor, friction: bool = True) -> torch.Tensor:
-    """Simplified electrical motor model: current/back-EMF/battery-voltage
-    saturation + Coulomb friction (the MotorDynamics flag), with the symmetric
-    final clamp the JAX package implements."""
-    gear = _gear(torque.device)
-    tau_motor = torque / gear
-    i_des = tau_motor / (_MOTOR_KT * 1.5)
-    bemf = qd * gear * _MOTOR_KT * 2.0
-    v_des = i_des * _MOTOR_R + bemf
-    v_act = torch.clamp(v_des, -_MOTOR_BATTERY_V, _MOTOR_BATTERY_V)
-    tau_act = 1.5 * _MOTOR_KT * (v_act - bemf) / _MOTOR_R
-    out = gear * torch.clamp(tau_act, -_MOTOR_TAU_MAX, _MOTOR_TAU_MAX)
-    if friction:
-        out = out - _MOTOR_DAMPING * qd - _MOTOR_FRICTION * torch.sign(qd)
-    return out
+    """Speed-dependent motor-envelope clamp on the (..., 12) joint torques
+    (Environment.hpp:1273-1312)."""
+    return pd_torque.torque_clamp(pd_torque.from_config(cfg), torque, qd)
 
 
 # --- phase-shaped contact windows (Environment.hpp:118-156) ------------------
@@ -505,17 +471,6 @@ def _pre_substeps(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
     return _PreOut(gc=gc, gv=gv, ptarget=ptarget, base_wrench=base_wrench)
 
 
-def _pd_torque(cfg: EnvConfig, ptarget, torque_norm_last, gc_joints, gv_joints):
-    """Per-substep PD -> smoothing quirk -> motor model -> envelope clamp,
-    elementwise over (B, 12)."""
-    c = _consts(cfg, ptarget.device)
-    tau = c.kp * (ptarget - gc_joints) - c.kd * gv_joints
-    tau = 0.99 * tau + 0.01 * torque_norm_last  # reference quirk, see notes
-    if cfg.motor_dynamics:
-        tau = real_torque(tau, gv_joints)
-    return torque_clamp(cfg, tau, gv_joints)
-
-
 class _Diag(NamedTuple):
     toe_pos: torch.Tensor           # (B, 4, 3)
     toe_vel: torch.Tensor           # (B, 4, 3)
@@ -527,25 +482,22 @@ def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
                gen: torch.Generator) -> StepOut:
     """One control step of every env with auto-reset (blackpanther.py:793-854).
 
-    The cfg.substeps (8) physics substeps each recompute the PD torque from
-    the fresh state in plain torch and call :func:`..ops.phys_cuda.substep`
-    once: the CUDA kernel for tensors on the card, its plain version on the
-    CPU."""
+    The cfg.substeps (8) physics substeps, each after the PD torque from the
+    fresh state, are one call of :func:`..ops.phys_cuda.control_step`: one
+    launch of the CUDA kernel for tensors on the card, the plain loop on the
+    CPU. Only the last substep's torque and toe rows are used after it."""
     _check_supported(cfg)
     pre = _pre_substeps(cfg, states, actions, gen)
     P = lanes.params_to_lanes(states.params)
-    impulse_scale = cfg.contact_impulse_mass / cfg.simulation_dt
-    bwT = pre.base_wrench.T.contiguous()
-    gcT, gvT = pre.gc.T.contiguous(), pre.gv.T.contiguous()
-    for _ in range(cfg.substeps):
-        tau = _pd_torque(cfg, pre.ptarget, states.torque_norm_last, gcT[7:].T, gvT[6:].T)
-        gcT, gvT, toe, toe_vel, fnorm, fnormal = phys_cuda.substep(
-            P, gcT, gvT, tau.T.contiguous(), bwT, cfg.contact_slip_vel, impulse_scale,
-            cfg.simulation_dt)
+    gcT, gvT, toe, toe_vel, fnorm, fnormal, tauT = phys_cuda.control_step(
+        P, pd_torque.from_config(cfg), pre.gc.T.contiguous(), pre.gv.T.contiguous(),
+        pre.ptarget.T.contiguous(), states.torque_norm_last.T.contiguous(),
+        pre.base_wrench.T.contiguous(), cfg.substeps, cfg.contact_slip_vel,
+        cfg.contact_impulse_mass / cfg.simulation_dt, cfg.simulation_dt)
     diag = _Diag(toe_pos=toe.permute(2, 0, 1), toe_vel=toe_vel.permute(2, 0, 1),
                  toe_force_norm=fnorm.T, toe_normal_force=fnormal.T)
-    return _post_substeps(cfg, states, gen, gcT.T.contiguous(), gvT.T.contiguous(), tau,
-                          diag, pre)
+    return _post_substeps(cfg, states, gen, gcT.T.contiguous(), gvT.T.contiguous(),
+                          tauT.T.contiguous(), diag, pre)
 
 
 def _post_substeps(cfg: EnvConfig, state: EnvState, gen: torch.Generator, gc, gv,

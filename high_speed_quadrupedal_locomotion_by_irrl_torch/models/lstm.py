@@ -6,9 +6,12 @@ DiagGaussian policy head with a learned state-independent log-std. Gate order
 is [input, forget, output, candidate]; the packed recurrent state is [c, h]
 per layer, pi tower first, then the value tower (CustomerLstmNN.py:112-134).
 
-Every cell of :func:`_tower` goes through :func:`..ops.lstm_cuda.lstm_cell`,
-the hand-written CUDA kernel on the card; :func:`lstm_cell` here is its plain
-PyTorch version.
+The two towers are independent, so :func:`forward` steps layer l of both in
+one call of :func:`..ops.lstm_cuda.lstm_cell_pair`, the hand-written CUDA
+kernel on the card: one launch a layer. Where the towers differ in depth or
+width, such a layer goes through :func:`..ops.lstm_cuda.lstm_cell`, one launch
+a tower. :func:`lstm_cell` and :func:`lstm_cell_pair` here are the kernel's
+plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -107,17 +110,22 @@ def _split_state(params: PolicyParams, state: torch.Tensor):
     return out
 
 
-def _tower(stack, chs, x, mask):
-    """Run one tower; mask resets state *before* the cell (a2c.utils.lstm)."""
-    new_chs = []
-    h_in = x
+def lstm_cell_pair(w0: LSTMWeights, w1: LSTMWeights, x0, x1, c0, h0, c1, h1, mask=None):
+    """The same layer of two independent towers in one call, with the
+    pre-cell state reset (a2c.utils.lstm): rows with mask 1 start from a zero
+    state. -> (c0', h0', c1', h1'). The plain version of the CUDA pair launch
+    in ops/lstm_cuda.py: two plain cells with the mask applied."""
+    if mask is not None:
+        keep = (1.0 - mask)[..., None]
+        c0, h0, c1, h1 = c0 * keep, h0 * keep, c1 * keep, h1 * keep
+    return lstm_cell(w0, x0, c0, h0) + lstm_cell(w1, x1, c1, h1)
+
+
+def _reset_cell(w: LSTMWeights, x, c, h, mask):
+    """One tower's cell after the pre-cell state reset, through the single-cell
+    kernel entry."""
     keep = (1.0 - mask)[..., None]
-    for w, (c, h) in zip(stack, chs):
-        c, h = c * keep, h * keep
-        c, h = lstm_cuda.lstm_cell(w, h_in, c, h)
-        new_chs.append((c, h))
-        h_in = h
-    return h_in, new_chs
+    return lstm_cuda.lstm_cell(w, x.contiguous(), c * keep, h * keep)
 
 
 class ForwardOut(NamedTuple):
@@ -132,11 +140,28 @@ def forward(params: PolicyParams, obs: torch.Tensor, state: torch.Tensor,
     """Single-step forward (act model). obs (B, 35), state (B, S), done (B,):
     the done mask of the *previous* step resets the state."""
     chs = _split_state(params, state)
-    n_pi = len(params.pi_lstm)
-    mask = done.to(obs.dtype)
-    obs = obs.contiguous()
-    pi_latent, pi_chs = _tower(params.pi_lstm, chs[:n_pi], obs, mask)
-    v_latent, v_chs = _tower(params.v_lstm, chs[n_pi:], obs, mask)
+    n_pi, n_v = len(params.pi_lstm), len(params.v_lstm)
+    mask = done.to(obs.dtype).contiguous()
+    pi_latent = v_latent = obs.contiguous()
+    pi_chs, v_chs = [], []
+    for layer in range(max(n_pi, n_v)):
+        w_pi = params.pi_lstm[layer] if layer < n_pi else None
+        w_v = params.v_lstm[layer] if layer < n_v else None
+        if (w_pi is not None and w_v is not None and w_pi.wx.shape == w_v.wx.shape
+                and w_pi.wh.shape == w_v.wh.shape):
+            (c_pi, h_pi), (c_v, h_v) = chs[layer], chs[n_pi + layer]
+            c_pi, pi_latent, c_v, v_latent = lstm_cuda.lstm_cell_pair(
+                w_pi, w_v, pi_latent, v_latent, c_pi, h_pi, c_v, h_v, mask)
+            pi_chs.append((c_pi, pi_latent))
+            v_chs.append((c_v, v_latent))
+            continue
+        # towers that differ here in depth or width: one cell launch a tower
+        if w_pi is not None:
+            c_pi, pi_latent = _reset_cell(w_pi, pi_latent, *chs[layer], mask)
+            pi_chs.append((c_pi, pi_latent))
+        if w_v is not None:
+            c_v, v_latent = _reset_cell(w_v, v_latent, *chs[n_pi + layer], mask)
+            v_chs.append((c_v, v_latent))
     mean = pi_latent @ params.pi_w + params.pi_b
     value = (v_latent @ params.vf_w + params.vf_b)[..., 0]
     packed = torch.cat([t for ch in pi_chs + v_chs for t in ch], dim=-1)

@@ -15,6 +15,7 @@ import torch
 
 from high_speed_quadrupedal_locomotion_by_irrl_torch import config as tconfig
 from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import blackpanther as tbp
+from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import pd_torque, phys_cuda
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as tmdl
 from high_speed_quadrupedal_locomotion_by_irrl_torch.robot import gait as tgait
 from high_speed_quadrupedal_locomotion_by_irrl_tpu import config as jconfig
@@ -95,6 +96,75 @@ def test_torque_clamp_and_real_torque_match_jax():
             np.asarray(jbp.torque_clamp(jc, tau, qd)), atol=1e-5, rtol=1e-6)
     np.testing.assert_allclose(tbp.real_torque(torch.from_numpy(tau), torch.from_numpy(qd)).numpy(),
                                np.asarray(jbp.real_torque(tau, qd)), atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("motor_dynamics", [False, True])
+def test_pd_torque_matches_jax(motor_dynamics):
+    """PD -> smoothing quirk -> motor model -> envelope clamp, the function the
+    fused control step carries into its kernel, under both configs."""
+    rng = np.random.default_rng(5)
+    f = lambda scale: (scale * rng.normal(size=(64, 12))).astype(np.float32)  # noqa: E731
+    pt, tnl, q, qd = f(1.0), f(0.5), f(1.0), f(15.0)
+    qd[0] = 0.0   # sign(0) = 0 in the motor friction
+    for jc, tc in ((jconfig.test_default(), tconfig.test_default()),
+                   (jconfig.train_default().replace(abad_ratio=0.5),
+                    tconfig.train_default().replace(abad_ratio=0.5))):
+        jc, tc = jc.replace(motor_dynamics=motor_dynamics), tc.replace(motor_dynamics=motor_dynamics)
+        got = pd_torque.pd_torque(pd_torque.from_config(tc), *(torch.from_numpy(x)
+                                                               for x in (pt, tnl, q, qd)))
+        np.testing.assert_allclose(got.numpy(), np.asarray(jbp._pd_torque(jc, pt, tnl, q, qd)),
+                                   atol=1e-5, rtol=1e-6)
+
+
+def _pd_torque_from_packed(consts, motor_dynamics, pt, tnl, q, qd):
+    """The control-step kernel's torque formula (csrc/phys_substep.cu,
+    pd_torque) in float32 numpy, from the 22 floats the kernel is handed."""
+    f = np.float32
+    c = [f(x) for x in consts]
+    by_link = lambda i: np.tile(np.array(c[i:i + 3], f), 4)  # noqa: E731
+    kp, kd, kr, gear = by_link(0), by_link(3), by_link(6), by_link(9)
+    tm, cs, ms, slope, kt, r, tau_max, batt, damp, fric = c[12:22]
+    tau = kp * (pt - q) - kd * qd
+    tau = f(0.99) * tau + f(0.01) * tnl
+    if motor_dynamics:
+        i_des = tau / gear / (kt * f(1.5))
+        bemf = qd * gear * kt * f(2.0)
+        v_act = np.clip(i_des * r + bemf, -batt, batt)
+        tau_act = (f(1.5) * kt) * (v_act - bemf) / r
+        tau = gear * np.clip(tau_act, -tau_max, tau_max) - damp * qd - fric * np.sign(qd)
+    w = qd * kr
+    up = np.where(w > cs, tm - (w - cs) * slope, tm) * kr
+    low = np.where(w < -cs, (-ms - w) / (-ms + cs) * -tm, -tm) * kr
+    return np.minimum(np.maximum(tau, low), up)
+
+
+@pytest.mark.parametrize("motor_dynamics", [False, True])
+def test_packed_pd_consts_reproduce_jax_pd_torque(motor_dynamics):
+    """The constants reach the kernel by value, in one fixed order: that
+    order, read as the kernel reads it, gives the JAX package's torque."""
+    rng = np.random.default_rng(6)
+    g = lambda scale: (scale * rng.normal(size=(64, 12))).astype(np.float32)  # noqa: E731
+    pt, tnl, q, qd = g(1.0), g(0.5), g(1.0), g(15.0)
+    qd[0] = 0.0
+    jc = jconfig.train_default().replace(abad_ratio=0.5, motor_dynamics=motor_dynamics)
+    tc = tconfig.train_default().replace(abad_ratio=0.5, motor_dynamics=motor_dynamics)
+    consts = phys_cuda.pack_pd_consts(pd_torque.from_config(tc))
+    assert len(consts) == 22
+    got = _pd_torque_from_packed(consts, motor_dynamics, pt, tnl, q, qd)
+    np.testing.assert_allclose(got, np.asarray(jbp._pd_torque(jc, pt, tnl, q, qd)),
+                               atol=1e-5, rtol=1e-6)
+
+
+def test_gear_ratios_must_repeat_leg_by_leg(monkeypatch):
+    """The kernel takes the gear ratios by link of a leg; a model whose legs
+    differ is refused, not silently read from the first leg."""
+    assert pd_torque.from_config(tconfig.test_default()).gear == tuple(
+        float(x) for x in tmdl.GEAR_RATIO[:3])
+    gear = np.array(tmdl.GEAR_RATIO, dtype=np.float64)
+    gear[7] += 1.0
+    monkeypatch.setattr(tmdl, "GEAR_RATIO", gear)
+    with pytest.raises(ValueError, match="gear ratios"):
+        pd_torque.real_torque(torch.zeros(2, 12), torch.zeros(2, 12))
 
 
 def test_deep_mimic_reward_matches_jax():

@@ -3,8 +3,13 @@
 The kernels run only on a CUDA device (they have no CPU mode), so these tests
 are marked ``cuda`` and skip without one. They import no JAX, so they also run
 on a GPU machine without it: ``python -m pytest tests/test_torch_kernels.py``.
-Tolerances are those the JAX package holds its Pallas kernels to
-(test_phys_pallas.py:41-46, test_ops.py:85-86).
+Tolerances of the single substep and the single cell are those the JAX
+package holds its Pallas kernels to (test_phys_pallas.py:41-46,
+test_ops.py:85-86). The fused control step is held by a chain: the single
+substep strictly against the plain version; the fused kernel tightly against
+8 x {plain PD torque + single-substep kernel} on the card (the same device
+code, so only the torque's rounding differs); and loosely against its plain
+loop, since 8 substeps of stiff penalty contact amplify rounding.
 """
 
 import numpy as np
@@ -13,7 +18,7 @@ import torch
 
 from high_speed_quadrupedal_locomotion_by_irrl_torch import config
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm
-from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import lstm_cuda, phys_cuda
+from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import lstm_cuda, pd_torque, phys_cuda
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as lanes
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
 
@@ -78,6 +83,122 @@ def test_lstm_kernel_matches_plain(cuda, B, d):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
 
 
+def _control_inputs(B, seed, device, motor_dynamics):
+    """Substep inputs plus position targets around the stand pose, last
+    normalized torques, and joint speeds fast enough to reach the motor
+    envelope's speed-dependent part."""
+    P, gc, gv, _, bw = _phys_inputs(B, seed, device)
+    rng = np.random.default_rng(seed + 1)
+    t = lambda x: torch.tensor(x, dtype=torch.float32, device=device).contiguous()  # noqa: E731
+    pt = t(mdl.stand_gc(0.0)[7:, None] + 0.3 * rng.normal(size=(12, B)))
+    tnl = t(0.5 * rng.normal(size=(12, B)))
+    gv = gv.clone()
+    gv[6:] *= 30.0
+    pd = pd_torque.from_config(config.test_default().replace(motor_dynamics=motor_dynamics))
+    return P, pd, gc, gv, pt, tnl, bw
+
+
+def _unfused_control_step(P, pd, gcT, gvT, ptT, tnlT, bwT, n, slip, imp, dt):
+    """n x {plain PD torque -> single-substep kernel}."""
+    for _ in range(n):
+        tauT = pd_torque.pd_torque(pd, ptT.T, tnlT.T, gcT[7:].T, gvT[6:].T).T.contiguous()
+        gcT, gvT, toe, toe_vel, fnorm, fn = phys_cuda.substep(P, gcT, gvT, tauT, bwT, slip, imp, dt)
+    return gcT, gvT, toe, toe_vel, fnorm, fn, tauT
+
+
+# (gc, gv, toe, toe vel, |f|, fn, torque): absolute, and relative for the forces
+CHAIN_B_ATOL = (1e-5, 1e-3, 1e-5, 1e-3, 2e-2, 2e-2, 1e-3)    # fused vs unfused kernels
+CHAIN_C_ATOL = (1e-5, 1e-2, 1e-5, 1e-2, 0.2, 0.2, 1e-2)      # fused vs plain loop
+
+
+@pytest.mark.parametrize("B", [1024, 37, 5])
+@pytest.mark.parametrize("n_substeps", [1, 8])
+@pytest.mark.parametrize("motor_dynamics", [False, True])
+def test_control_step_kernel_chain(cuda, B, n_substeps, motor_dynamics):
+    cfg = config.test_default()
+    args = _control_inputs(B, B + n_substeps, cuda, motor_dynamics)
+    tail = (n_substeps, cfg.contact_slip_vel, 0.0, cfg.simulation_dt)
+    before = phys_cuda.launches
+    got = phys_cuda.control_step(*args, *tail)
+    torch.cuda.synchronize()
+    assert phys_cuda.launches == before + 1
+    unfused = _unfused_control_step(*args, *tail)
+    assert phys_cuda.launches == before + 1 + n_substeps
+    plain = phys_cuda.control_step_plain(*args, *tail)
+    assert (plain[5] > 0).any(), "no toe in contact: the contact branch went untested"
+    # (b) the same device code behind both; the torque rounds otherwise in the kernel and
+    # 8 stiff substeps carry that on (measured: 1.2e-2 N on forces of ~100 N, the rest
+    # within the single-substep tolerances)
+    for i, atol in enumerate(CHAIN_B_ATOL):
+        torch.testing.assert_close(got[i], unfused[i], atol=atol, rtol=1e-4 if i in (4, 5) else 0)
+    # (c) 8 stiff substeps amplify the single-substep differences (kn ~ 3e4 N/m turns
+    # 1e-6 m into 0.03 N, and the state feeds back through the PD law); measured 3.4e-2 N,
+    # 1.2e-3 on gv and 1.1e-3 Nm, held at some 6x that
+    for i, atol in enumerate(CHAIN_C_ATOL):
+        torch.testing.assert_close(got[i], plain[i], atol=atol, rtol=1e-3 if i in (4, 5) else 0)
+
+
+@pytest.mark.parametrize("B", [1024, 37, 5])
+@pytest.mark.parametrize("d", [35, 48])
+@pytest.mark.parametrize("masked", [False, True])
+def test_lstm_pair_kernel_matches_plain(cuda, B, d, masked):
+    """Both towers of a layer in one launch, reading strided views of a packed
+    state, with the pre-cell reset mask."""
+    g = torch.Generator(device=cuda).manual_seed(B + d)
+    r = lambda *s, scale=1.0: scale * torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    mk = lambda: lstm.LSTMWeights(wx=r(d, 192, scale=0.2), wh=r(48, 192, scale=0.2),  # noqa: E731
+                                  b=r(192, scale=0.1))
+    w0, w1, state, xs = mk(), mk(), r(B, 192), r(B, 2 * d + 3)
+    mask = (torch.rand(B, generator=g, device=cuda) < 0.4).float() if masked else None
+    args = (w0, w1, xs[:, :d], xs[:, d:2 * d], state[:, :48], state[:, 48:96],
+            state[:, 96:144], state[:, 144:], mask)
+    before = lstm_cuda.launches
+    got = lstm_cuda.lstm_cell_pair(*args)
+    want = lstm.lstm_cell_pair(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.launches == before + 1
+    for a, b in zip(got, want):   # f32 gate products of length <= 96, another order
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def test_policy_forward_launches_one_kernel_a_layer(cuda):
+    p = lstm.init(torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    before = lstm_cuda.launches
+    out = lstm.forward(p, torch.zeros(7, 35, device=cuda), torch.zeros(7, 384, device=cuda),
+                       torch.zeros(7, device=cuda))
+    assert lstm_cuda.launches == before + len(p.pi_lstm)
+    assert out.state.shape == (7, 384) and torch.isfinite(out.mean).all()
+
+
+@pytest.mark.parametrize("v_layers,want_launches", [((48,), 2), ((32, 48), 4), ((48, 32, 32), 4)])
+def test_policy_forward_with_unequal_towers(cuda, v_layers, want_launches):
+    """Layers the towers share in shape take the pair launch; the others one
+    single-cell launch a tower, with the state reset applied before it. Held
+    against the same forward on the CPU (the plain versions)."""
+    B = 37
+    a = lstm.init(torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    b = lstm.init(torch.Generator(device=cuda).manual_seed(2), n_lstm=v_layers, device=cuda)
+    p = lstm.PolicyParams(pi_lstm=a.pi_lstm, v_lstm=b.v_lstm, pi_w=a.pi_w, pi_b=a.pi_b,
+                          logstd=a.logstd, vf_w=b.vf_w, vf_b=b.vf_b)
+    cpu = lambda t: t.cpu()  # noqa: E731
+    p_cpu = lstm.PolicyParams(
+        pi_lstm=tuple(lstm.LSTMWeights(cpu(w.wx), cpu(w.wh), cpu(w.b)) for w in p.pi_lstm),
+        v_lstm=tuple(lstm.LSTMWeights(cpu(w.wx), cpu(w.wh), cpu(w.b)) for w in p.v_lstm),
+        pi_w=cpu(p.pi_w), pi_b=cpu(p.pi_b), logstd=cpu(p.logstd), vf_w=cpu(p.vf_w),
+        vf_b=cpu(p.vf_b))
+    g = torch.Generator().manual_seed(3)
+    S = 2 * 96 + 2 * sum(v_layers)
+    obs, state = torch.randn(B, 35, generator=g), torch.randn(B, S, generator=g)
+    done = (torch.rand(B, generator=g) < 0.4).float()
+    before = lstm_cuda.launches
+    got = lstm.forward(p, obs.to(cuda), state.to(cuda), done.to(cuda))
+    torch.cuda.synchronize()
+    assert lstm_cuda.launches == before + want_launches
+    want = lstm.forward(p_cpu, obs, state, done)
+    for g_, w_ in zip(got[:3], want[:3]):   # f32 gate products summed in another order
+        torch.testing.assert_close(g_.cpu(), w_, atol=1e-5, rtol=0)
+
+
 def test_wrappers_refuse_bad_cuda_input(cuda):
     w = lstm.LSTMWeights(wx=torch.zeros(35, 192, device=cuda), wh=torch.zeros(48, 192, device=cuda),
                          b=torch.zeros(192, device=cuda))
@@ -91,3 +212,23 @@ def test_wrappers_refuse_bad_cuda_input(cuda):
     P, gc, gv, tau, bw = _phys_inputs(4, 0, cuda)
     with pytest.raises(ValueError, match="shape"):
         phys_cuda.substep(P, gc, gv, tau[:11].contiguous(), bw, 0.1, 0.0, 2.5e-4)
+    pd = pd_torque.from_config(config.test_default())
+    z12 = torch.zeros(12, 4, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        phys_cuda.control_step(P, pd, gc, gv, z12[:11].contiguous(), z12, bw, 8, 0.1, 0.0, 2.5e-4)
+    with pytest.raises(ValueError, match="float32"):
+        phys_cuda.control_step(P, pd, gc, gv, z12.double(), z12, bw, 8, 0.1, 0.0, 2.5e-4)
+    with pytest.raises(ValueError, match="contiguous"):
+        phys_cuda.control_step(P, pd, gc, gv, torch.zeros(4, 12, device=cuda).T, z12, bw, 8,
+                               0.1, 0.0, 2.5e-4)
+    with pytest.raises(ValueError, match="n_substeps"):
+        phys_cuda.control_step(P, pd, gc, gv, z12, z12, bw, 0, 0.1, 0.0, 2.5e-4)
+    ch = torch.zeros(4, 48, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        lstm_cuda.lstm_cell_pair(w, w, x, x[:3], ch, ch, ch, ch)
+    with pytest.raises(ValueError, match="float32"):
+        lstm_cuda.lstm_cell_pair(w, w, x, x, ch.double(), ch, ch, ch)
+    with pytest.raises(ValueError, match="contiguous"):
+        lstm_cuda.lstm_cell_pair(w, w, x, x, torch.zeros(48, 4, device=cuda).T, ch, ch, ch)
+    with pytest.raises(ValueError, match="row stride"):
+        lstm_cuda.lstm_cell_pair(w, w, x, x, ch, ch, torch.zeros(4, 96, device=cuda)[:, :48], ch)

@@ -49,6 +49,67 @@ def test_lstm_cell_matches_jax_and_pallas_interpret(d):
             np.testing.assert_allclose(h.numpy(), np.asarray(want_h), atol=1e-5)
 
 
+@pytest.mark.parametrize("d", [35, 48])
+def test_lstm_cell_pair_matches_jax_towers_with_done_mask(d):
+    """One layer of both towers in one call, some rows reset by the done
+    mask: the plain pair (the CPU path of ops/lstm_cuda.lstm_cell_pair, here
+    on strided views of one packed state) against the JAX package's _tower
+    run once per tower."""
+    B, n = 24, 48
+    a0, a1 = _cell_inputs(B, d, n, d), _cell_inputs(B, d, n, d + 100)
+    mask = (np.random.default_rng(d).random(B) < 0.4).astype(np.float32)
+    assert 0 < mask.sum() < B
+    jw = lambda a: jlstm.LSTMWeights(wx=jnp.asarray(a["wx"]), wh=jnp.asarray(a["wh"]),  # noqa: E731
+                                     b=jnp.asarray(a["b"]))
+    tw = lambda a: tlstm.LSTMWeights(wx=torch.from_numpy(a["wx"]), wh=torch.from_numpy(a["wh"]),  # noqa: E731
+                                     b=torch.from_numpy(a["b"]))
+    want = []
+    for a in (a0, a1):
+        _, [(c, h)] = jlstm._tower((jw(a),), [(jnp.asarray(a["c"]), jnp.asarray(a["h"]))],
+                                   jnp.asarray(a["x"]), jnp.asarray(mask))
+        want += [c, h]
+    state = torch.from_numpy(np.concatenate([a0["c"], a0["h"], a1["c"], a1["h"]], -1))
+    views = [state[:, i * n:(i + 1) * n] for i in range(4)]
+    for fn in (tlstm.lstm_cell_pair, lstm_cuda.lstm_cell_pair):
+        got = fn(tw(a0), tw(a1), torch.from_numpy(a0["x"]), torch.from_numpy(a1["x"]), *views,
+                 torch.from_numpy(mask))
+        for g, w in zip(got, want):   # f32 gate products of length <= 96, another order
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+    # rows with the mask set start from a zero state: their result ignores c and h
+    zero = [torch.zeros_like(v) for v in views]
+    got0 = tlstm.lstm_cell_pair(tw(a0), tw(a1), torch.from_numpy(a0["x"]),
+                                torch.from_numpy(a1["x"]), *zero, None)
+    for g, g0 in zip(got, got0):
+        np.testing.assert_allclose(g.numpy()[mask == 1], g0.numpy()[mask == 1], atol=1e-6)
+
+
+@pytest.mark.parametrize("v_layers", [(48,), (32, 48), (48, 32, 32)])
+def test_forward_towers_of_different_shape_match_jax(v_layers):
+    """A value tower shallower, deeper or of other widths than the policy
+    tower: layers the towers share in shape go through the pair entry, the
+    others through the single cell, and both agree with the JAX forward over
+    a few recurrent steps with a done in the middle."""
+    B, T = 3, 6
+    ka, kb = jax.random.split(jax.random.PRNGKey(len(v_layers)))
+    ja, jb = jlstm.init(ka, n_lstm=(48, 48)), jlstm.init(kb, n_lstm=v_layers)
+    jp = ja._replace(v_lstm=jb.v_lstm, vf_w=jb.vf_w, vf_b=jb.vf_b)
+    tp = tio.policy_params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    S = 2 * (48 + 48) + 2 * sum(v_layers)
+    rng = np.random.default_rng(11)
+    obs = rng.normal(size=(T, B, 35)).astype(np.float32)
+    done = np.zeros((T, B), np.float32)
+    done[3, 1] = 1.0
+    js, ts = jnp.zeros((B, S)), torch.zeros(B, S)
+    for t in range(T):
+        jo = jlstm.forward(jp, jnp.asarray(obs[t]), js, jnp.asarray(done[t]))
+        to = tlstm.forward(tp, torch.from_numpy(obs[t]), ts, torch.from_numpy(done[t]))
+        # f32 products summed in another order, carried through the steps
+        np.testing.assert_allclose(to.mean.numpy(), np.asarray(jo.mean), atol=1e-5)
+        np.testing.assert_allclose(to.value.numpy(), np.asarray(jo.value), atol=1e-5)
+        np.testing.assert_allclose(to.state.numpy(), np.asarray(jo.state), atol=1e-5)
+        js, ts = jo.state, to.state
+
+
 def test_loader_matches_jax_loader():
     jp = jax.tree.map(np.asarray, jio.load_bp5_csv(ARTIFACT))
     tp = tio.load_bp5_csv(ARTIFACT, device="cpu")

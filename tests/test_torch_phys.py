@@ -3,8 +3,10 @@
 The port's plain substep (ops/phys_lanes.substep) is held against the JAX
 ``phys_lanes.substep`` run eagerly (no jit: the jitted lanes graph is the
 slow compile of the JAX suite). Inputs are made with numpy from a seed and
-handed to both. The CUDA kernel (ops/phys_cuda) is held against the plain
-version on the card in tests/test_torch_kernels.py.
+handed to both. The plain control step (PD torque + substep, iterated) is
+held against the JAX package's ``_pd_torque`` and ``phys_lanes.substep``
+iterated the same way. The CUDA kernels (ops/phys_cuda) are held against the
+plain versions on the card in tests/test_torch_kernels.py.
 """
 
 import jax
@@ -14,11 +16,12 @@ import pytest
 import torch
 
 from high_speed_quadrupedal_locomotion_by_irrl_torch import config as tconfig
-from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_cuda
+from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import pd_torque, phys_cuda
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as tlanes
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as tmdl
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import rotation as trot
 from high_speed_quadrupedal_locomotion_by_irrl_tpu import config as jconfig
+from high_speed_quadrupedal_locomotion_by_irrl_tpu.envs import blackpanther as jbp
 from high_speed_quadrupedal_locomotion_by_irrl_tpu.ops import phys_lanes as jlanes
 from high_speed_quadrupedal_locomotion_by_irrl_tpu.ops import phys_pallas as jpallas
 from high_speed_quadrupedal_locomotion_by_irrl_tpu.phys import model as jmdl
@@ -71,6 +74,52 @@ def test_plain_substep_matches_jax(impulse_scale):
     np.testing.assert_allclose(b[4].numpy(), np.asarray(a[4]), atol=5e-3, rtol=1e-4)
     np.testing.assert_allclose(b[5].numpy(), np.asarray(a[5]), atol=5e-3, rtol=1e-4)
     assert (np.asarray(a[5]) > 0).any(), "no toe in contact: the contact branch went untested"
+
+
+@pytest.mark.parametrize("impulse_scale", [0.0, 400.0])
+@pytest.mark.parametrize("motor_dynamics", [False, True])
+def test_plain_control_step_matches_jax(motor_dynamics, impulse_scale):
+    """cfg.substeps x {PD torque from the fresh state -> substep}: the port's
+    control_step on the CPU (its plain version) against the JAX package's
+    _pd_torque and phys_lanes.substep iterated as its step_batch does."""
+    B = 8
+    jcfg = jconfig.test_default().replace(motor_dynamics=motor_dynamics)
+    tcfg = tconfig.test_default().replace(motor_dynamics=motor_dynamics)
+    jp = _random_params(B, 3)
+    gc, gv, _, bw = _states(B, 5)
+    rng = np.random.default_rng(6)
+    gv[:, 6:] *= 30.0   # joint speeds that reach the envelope's speed-dependent part
+    pt = (gc[:, 7:] + 0.3 * rng.normal(size=(B, 12))).astype(np.float32)
+    tnl = (0.5 * rng.normal(size=(B, 12))).astype(np.float32)
+
+    jP = jlanes.params_to_lanes(jax.tree.map(jnp.asarray, jp))
+    gcT, gvT = jnp.asarray(gc.T), jnp.asarray(gv.T)
+    for _ in range(jcfg.substeps):
+        tau = jbp._pd_torque(jcfg, jnp.asarray(pt), jnp.asarray(tnl), gcT[7:].T, gvT[6:].T)
+        gcT, gvT, toe, toe_vel, fnorm, fn = jlanes.substep(
+            jP, gcT, gvT, tau.T, jnp.asarray(bw.T), jcfg.contact_slip_vel, impulse_scale,
+            jcfg.simulation_dt)
+    want = (gcT, gvT, toe, toe_vel, fnorm, fn, tau.T)
+
+    P = tlanes.params_to_lanes(tmdl.robot_params_from_numpy(jp, "cpu"))
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x.T))  # noqa: E731
+    got = phys_cuda.control_step(P, pd_torque.from_config(tcfg), t(gc), t(gv), t(pt), t(tnl),
+                                 t(bw), tcfg.substeps, tcfg.contact_slip_vel, impulse_scale,
+                                 tcfg.simulation_dt)
+    assert tcfg.substeps == jcfg.substeps == 8
+    assert (np.asarray(want[5]) > 0).any(), "no toe in contact: the contact branch went untested"
+    # the single-substep tolerances, gv and the forces widened for 8 stiff substeps
+    # that feed rounding back through the PD law (the step_batch-vs-JAX test's scale)
+    for i, (atol, rtol) in enumerate(((1e-5, 0), (1e-2, 0), (1e-5, 0), (1e-2, 0), (5e-2, 1e-3),
+                                      (5e-2, 1e-3), (2e-3, 0))):
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]), atol=atol, rtol=rtol,
+                                   err_msg=f"output {i}")
+
+
+def test_control_step_refuses_no_substeps():
+    with pytest.raises(ValueError, match="n_substeps"):
+        phys_cuda.control_step(None, None, torch.zeros(19, 1), None, None, None, None, 0, 0.1,
+                               0.0, 2.5e-4)
 
 
 def test_pack_params_matches_pallas_layout():

@@ -22,7 +22,9 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.cli import test as tcli
 from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import blackpanther as tbp
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import io as tio
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm as tlstm
-from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import _build, lstm_cuda, phys_cuda
+from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import (
+    _build, lstm_cuda, pd_torque, phys_cuda,
+)
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as tlanes
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as tmdl
 
@@ -114,3 +116,40 @@ def test_launch_counters_stay_put_on_cpu():
     w = tlstm.LSTMWeights(wx=torch.zeros(35, 192), wh=torch.zeros(48, 192), b=torch.zeros(192))
     lstm_cuda.lstm_cell(w, torch.zeros(B, 35), torch.zeros(B, 48), torch.zeros(B, 48))
     assert (phys_cuda.launches, lstm_cuda.launches) == before
+
+
+def test_fused_entry_counters_stay_put_on_cpu():
+    """The same for the entries the main path calls: the fused control step
+    and the two-tower LSTM launch."""
+    before = (phys_cuda.launches, lstm_cuda.launches)
+    B = 2
+    P = tlanes.params_to_lanes(tmdl.nominal_params(None, "cpu").expand(B))
+    gc = torch.from_numpy(np.tile(tmdl.stand_gc(), (B, 1)).T.astype(np.float32).copy())
+    pd = pd_torque.from_config(tconfig.test_default())
+    out = phys_cuda.control_step(P, pd, gc, torch.zeros(18, B), gc[7:].clone(),
+                                 torch.zeros(12, B), torch.zeros(6, B), 2, 0.1, 0.0, 2.5e-4)
+    assert len(out) == 7 and out[6].shape == (12, B)
+    p = tlstm.init(torch.Generator().manual_seed(0), device="cpu")
+    tlstm.forward(p, torch.zeros(B, 35), torch.zeros(B, 384), torch.zeros(B))
+    assert (phys_cuda.launches, lstm_cuda.launches) == before
+
+
+def test_smoke_bound_counts_fewer_operations_than_the_plain_version():
+    """The operations bound of the physics kernel counts what the function
+    needs (composite form, leg-first solve), so it stays under what the plain
+    version does and scales with the substeps."""
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    B = 2
+    P = tlanes.params_to_lanes(tmdl.nominal_params(None, "cpu").expand(B))
+    gc = torch.from_numpy(np.tile(tmdl.stand_gc(), (B, 1)).T.astype(np.float32).copy())
+    plain = chip_smoke.count_ops(lambda: tlanes.substep(
+        P, gc, torch.zeros(18, B), torch.zeros(12, B), torch.zeros(6, B), 0.1, 0.0, 2.5e-4)) / B
+    need = chip_smoke.phys_ops_per_env(1, pd_law=False)
+    assert 0.25 * plain < need < 0.5 * plain
+    one, eight = (chip_smoke.phys_ops_per_env(n, pd_law=True, motor_dynamics=True)
+                  for n in (1, 8))
+    assert eight == 8 * one and one > need
