@@ -1,0 +1,140 @@
+"""Training / relaxation entry point of the PyTorch port.
+
+CLI parity with the reference's train branch (run_bp_v5.py:209-259):
+
+  imitation:  python -m high_speed_quadrupedal_locomotion_by_irrl_torch.cli.train \
+                  --cfg high_speed_quadrupedal_locomotion_by_irrl_torch/configs/bp5_imitation.yaml \
+                  --lr 1e-3 --max-iter 200000000
+  relaxation: ... --cfg .../configs/bp5_train.yaml --load runs/<stamp>/ckpt_final.pkl --lr 5e-4
+              (the relaxed reward coefficients are in the YAML, readme.md:64-75)
+
+Runs on the card (``--device cuda``, the default) or on the CPU
+(``--device cpu``). Checkpoints include Adam's state (unlike PPO2.save,
+ppo2.py:452-476) and come with a bp5-format CSV export for the
+dependency-free deployment path; ``--load`` takes either. The JAX package's
+``.pkl`` checkpoints are not read: hand such a controller over as its CSV
+directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+from high_speed_quadrupedal_locomotion_by_irrl_torch import config as cfg_mod
+from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
+from high_speed_quadrupedal_locomotion_by_irrl_torch.algo import ppo
+from high_speed_quadrupedal_locomotion_by_irrl_torch.models import io as mio
+from high_speed_quadrupedal_locomotion_by_irrl_torch.utils.metrics import JsonlLogger
+from high_speed_quadrupedal_locomotion_by_irrl_torch.utils.run_dir import make_run_dir
+
+# flags of the JAX package's cli/train.py whose code is not in the port yet, with
+# the ROADMAP.md queue item that brings each
+_NOT_PORTED = {
+    "no_lanes": ("--no-lanes", "the per-env step path (ROADMAP.md, Queue 1: per-env step "
+                               "paths and physics variants)"),
+    "distributed": ("--distributed", "multi-GPU training (ROADMAP.md, Queue 1: multi-GPU)"),
+    "terrain_z_curriculum": ("--terrain-z-curriculum",
+                             "terrain (ROADMAP.md, Queue 1: per-env step paths and physics "
+                             "variants)"),
+}
+
+
+def parse_args(argv):
+    p = argparse.ArgumentParser(description="IRRL PPO training (PyTorch port)")
+    p.add_argument("--cfg", type=str, default=None, help="environment YAML")
+    p.add_argument("--lr", "--l", type=float, default=1e-3, dest="lr")
+    p.add_argument("--lr-final", type=float, default=None,
+                   help="linear-anneal lr to this value over the run")
+    p.add_argument("--max-iter", type=int, default=200_000_000,
+                   help="total env steps (reference --max_iter)")
+    p.add_argument("--load", type=str, default=None,
+                   help="checkpoint .pkl of this port or bp5 CSV dir to warm-start "
+                        "(relaxation)")
+    p.add_argument("--resume", type=str, default=None,
+                   help="checkpoint .pkl to resume params AND optimizer state "
+                        "from (interrupted-run continuation; --max-iter then "
+                        "counts the REMAINING env steps)")
+    p.add_argument("--terrain-z-curriculum", type=str, default=None, metavar="LO,HI",
+                   help="not in the port yet (raises)")
+    p.add_argument("--entropy-floor", type=float, default=None,
+                   help="minimum policy entropy in nats (logstd projected "
+                        "up after each update). Both terrain relaxation "
+                        "legs collapsed once entropy fell below ~5.2 "
+                        "(docs/evidence/terrain_leg2_r4.md); pass 5.2 to "
+                        "pin exploration there for long relaxation legs")
+    p.add_argument("--logstd", type=float, default=None,
+                   help="override initial logstd (useful when warm-starting "
+                        "from a CSV export that predates the logstd.csv field)")
+    p.add_argument("--log-dir", type=str, default="runs")
+    p.add_argument("--eval-every", type=int, default=100)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--num-envs", type=int, default=None)
+    p.add_argument("--n-steps", type=int, default=None,
+                   help="rollout/BPTT length override (default: episode_len)")
+    p.add_argument("--max-updates", type=int, default=None,
+                   help="cap PPO updates directly (overrides --max-iter; "
+                        "small smoke runs)")
+    p.add_argument("--distributed", action="store_true", help="not in the port yet (raises)")
+    p.add_argument("--lanes", action="store_true",
+                   help="batched physics, one fused kernel launch a control step: the "
+                        "port's only physics path, so the flag changes nothing")
+    p.add_argument("--no-lanes", action="store_true", help="not in the port yet (raises)")
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv if argv is not None else sys.argv[1:])
+    for dest, (flag, what) in _NOT_PORTED.items():
+        if getattr(args, dest):
+            raise NotImplementedError(f"{flag} is not in the PyTorch port yet: it comes with "
+                                      f"{what}")
+    device = dev_mod.resolve(args.device)
+    env_cfg = cfg_mod.from_yaml(args.cfg) if args.cfg else cfg_mod.train_default()
+    if args.seed is not None:
+        env_cfg = env_cfg.replace(seed=args.seed)
+    if args.num_envs is not None:
+        env_cfg = env_cfg.replace(num_envs=args.num_envs)
+    env_cfg = env_cfg.replace(use_lanes_physics=True)
+    print(f"physics path: batched lanes (num_envs={env_cfg.num_envs}) on {device}")
+    ppo_cfg = ppo.PPOConfig(learning_rate=args.lr, lr_final=args.lr_final,
+                            n_steps=args.n_steps or env_cfg.episode_len,
+                            entropy_floor=args.entropy_floor)
+    if args.max_updates is not None:
+        args.max_iter = args.max_updates * env_cfg.num_envs * ppo_cfg.n_steps
+
+    params, opt_state = None, None
+    if args.resume:
+        params, opt_state, step = mio.load_checkpoint(args.resume, device)
+        print(f"resuming params+optimizer from {args.resume} (update {step})")
+    elif args.load:
+        if os.path.isdir(args.load):
+            params = mio.load_bp5_csv(args.load, device=device)
+        else:
+            params, _, _ = mio.load_checkpoint(args.load, device)
+        if args.logstd is not None:
+            params.logstd = torch.full_like(params.logstd, args.logstd)
+
+    run_dir = make_run_dir(args.log_dir, env_cfg, [args.cfg] if args.cfg else [])
+    print(f"run dir: {run_dir}")
+
+    def save(ts: ppo.TrainState, tag):
+        mio.save_checkpoint(os.path.join(run_dir, f"ckpt_{tag}.pkl"), ts.params, ts.opt_state,
+                            ts.update_idx)
+        mio.save_bp5_csv(ts.params, os.path.join(run_dir, f"csv_{tag}"))
+
+    with JsonlLogger(os.path.join(run_dir, "metrics.jsonl")) as mlog:
+        ts = ppo.learn(env_cfg, ppo_cfg, args.max_iter, env_cfg.seed, params,
+                       eval_every_n=args.eval_every,
+                       callback=lambda ts, metrics: save(ts, ts.update_idx),
+                       metrics_hook=mlog.write, opt_state=opt_state, device=device)
+    save(ts, "final")
+    return run_dir
+
+
+if __name__ == "__main__":
+    main()

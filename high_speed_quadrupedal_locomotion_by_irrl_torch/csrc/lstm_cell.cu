@@ -42,6 +42,25 @@
 // Rows of x, h, c and of the outputs may be strided (row strides in
 // elements, unit inner stride), so the pair launch reads the packed
 // recurrent state in place.
+//
+// Training. lstm_cell_train_kernel is the same forward (one tower or two on
+// gridDim.y, with the mask) that also keeps the activated gates [i, f, o, g]
+// of every row, (B, 4n), for the backward. lstm_cell_bwd_kernel is the
+// gradient of one step, with no TPU counterpart (the JAX package leaves the
+// transpose of its cell to XLA). From the gradients that reach c' and h' it
+// computes, in one launch a step:
+//   dct = dc' + dh' * o * (1 - tanh(c')^2)
+//   dgates = [dct*g*i(1-i), dct*(c*keep)*f(1-f), dh'*tanh(c')*o(1-o), dct*i*(1-g^2)]
+//   dc = dct * f * keep;   dh = (dgates @ Wh^T) * keep;   dx = dgates @ Wx^T
+// and writes dgates over the stashed gates, so that the weight gradients are
+// one product over all steps afterwards (ops/lstm_cuda.py). The two
+// transposed products are one reduction over the 4n gate columns, shaped as
+// the forward's: the wrapper hands the kernel [Wh^T | Wx^T] as one (4n, kp)
+// matrix, zero-padded to whole columns a thread, so a thread owns hidden
+// unit u of dh and columns u, u + n, ... of dx for its kRows rows, the
+// weight rows stream through the same cp.async ring and the tile of dgates
+// lies j-major in shared memory. It is bound like the forward: ~38 MFLOP and
+// ~2 MB a tower at B = 1024, latency and the shared-memory pipe, not flops.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -128,9 +147,11 @@ __device__ __forceinline__ void stage_column(const float* __restrict__ src, int 
     *reinterpret_cast<float4*>(s_dst + k * kTile + j) = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
 }
 
+// kTrain also writes the activated gates of every row to gates_out (B, 4n).
+template <bool kTrain>
 __device__ __forceinline__ void cell_block(const CellArgs& a, const float* __restrict__ mask,
                                            const Strides& ld, int B, int d, int n,
-                                           float* smem) {
+                                           float* smem, float* __restrict__ gates_out = nullptr) {
   const int n4 = 4 * n, K = d + n;
   const int nchunks = (K + kChunk - 1) / kChunk;
   float* s_in = smem;                            // [nchunks * kChunk][kTile]
@@ -180,7 +201,7 @@ __device__ __forceinline__ void cell_block(const CellArgs& a, const float* __res
               b3 = __ldg(a.b + 3 * n + u);
   // rows past the edge hold zeros and are computed too: without a branch a
   // row the gate chains of all rows interleave; only the stores are masked
-  float c_new[kRows], h_new[kRows];
+  float c_new[kRows], h_new[kRows], act[kRows][4];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const float ig = sigmoidf(acc[r][0] + b0);
@@ -189,6 +210,7 @@ __device__ __forceinline__ void cell_block(const CellArgs& a, const float* __res
     const float cg = tanhf(acc[r][3] + b3);
     c_new[r] = fg * c_prev[r] + ig * cg;
     h_new[r] = og * tanhf(c_new[r]);
+    if (kTrain) { act[r][0] = ig; act[r][1] = fg; act[r][2] = og; act[r][3] = cg; }
   }
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -196,6 +218,10 @@ __device__ __forceinline__ void cell_block(const CellArgs& a, const float* __res
     if (row < B) {
       a.c_out[(size_t)row * ld.out + u] = c_new[r];
       a.h_out[(size_t)row * ld.out + u] = h_new[r];
+      if (kTrain) {
+        float* g = gates_out + (size_t)row * n4 + u;
+        g[0] = act[r][0]; g[n] = act[r][1]; g[2 * n] = act[r][2]; g[3 * n] = act[r][3];
+      }
     }
   }
 }
@@ -203,7 +229,7 @@ __device__ __forceinline__ void cell_block(const CellArgs& a, const float* __res
 __global__ void __launch_bounds__(kMaxThreads)
 lstm_cell_kernel(CellArgs a, Strides ld, int B, int d, int n) {
   extern __shared__ __align__(16) float smem[];
-  cell_block(a, nullptr, ld, B, d, n, smem);
+  cell_block<false>(a, nullptr, ld, B, d, n, smem);
 }
 
 // blockIdx.y picks the tower; mask (B,) or null resets the state of its rows.
@@ -216,7 +242,184 @@ lstm_cell_pair_kernel(CellArgs a0, CellArgs a1, const float* __restrict__ mask, 
                       second ? a1.c : a0.c,   second ? a1.wx : a0.wx,
                       second ? a1.wh : a0.wh, second ? a1.b : a0.b,
                       second ? a1.h_out : a0.h_out, second ? a1.c_out : a0.c_out};
-  cell_block(a, mask, ld, B, d, n, smem);
+  cell_block<false>(a, mask, ld, B, d, n, smem);
+}
+
+// The forward of a training step: gridDim.y towers (1 or 2), the mask, and
+// the activated gates kept for lstm_cell_bwd_kernel.
+__global__ void __launch_bounds__(kMaxThreads)
+lstm_cell_train_kernel(CellArgs a0, CellArgs a1, float* __restrict__ gates0,
+                       float* __restrict__ gates1, const float* __restrict__ mask, Strides ld,
+                       int B, int d, int n) {
+  extern __shared__ __align__(16) float smem[];
+  const bool second = blockIdx.y != 0;
+  const CellArgs a = {second ? a1.x : a0.x,   second ? a1.h : a0.h,
+                      second ? a1.c : a0.c,   second ? a1.wx : a0.wx,
+                      second ? a1.wh : a0.wh, second ? a1.b : a0.b,
+                      second ? a1.h_out : a0.h_out, second ? a1.c_out : a0.c_out};
+  cell_block<true>(a, mask, ld, B, d, n, smem, second ? gates1 : gates0);
+}
+
+// --- backward of one step ------------------------------------------------------
+
+struct BwdArgs {
+  float* __restrict__ gates;  // (B, 4n) in: activated [i, f, o, g]; out: dgates (pre-activation)
+  const float *__restrict__ c_prev, *__restrict__ c_new;  // c before the reset (row stride ld_c); c'
+  // gradients that reach h' and c', each (B, n) or null: from the layer above
+  // or the loss (up) and from step t + 1 (rec)
+  const float *__restrict__ dh_up, *__restrict__ dh_rec, *__restrict__ dc_up, *__restrict__ dc_rec;
+  const float* __restrict__ wt;  // (4n, kp): [Wh^T | Wx^T | 0]
+  float *__restrict__ dc_out, *__restrict__ dh_out;  // (B, n): to c and h of step t - 1
+  float* __restrict__ dx_out;                        // (B, d), or null with d = 0
+};
+
+// Start the copy of rows chunk * kChunk ... of wt into one stage of the ring,
+// 16 bytes a copy, the block's threads striding over the chunk. Rows past 4n
+// get zeros. Always commits a group.
+__device__ __forceinline__ void load_wt_chunk(const float* __restrict__ wt, int n4, int kp,
+                                              int chunk, float* s_stage) {
+  const int kp4 = kp >> 2;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x, nthreads = blockDim.x * blockDim.y;
+  for (int idx = tid; idx < kChunk * kp4; idx += nthreads) {
+    const int r = idx / kp4, q = idx - r * kp4, j = chunk * kChunk + r;
+    float* dst = s_stage + r * kp + 4 * q;
+    if (j < n4) {
+      __pipeline_memcpy_async(dst, wt + (size_t)j * kp + 4 * q, 16);
+    } else {
+      *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+  __pipeline_commit();
+}
+
+// kCols: output columns a thread owns: u (dh), then u + n, ... (dx).
+template <int kCols>
+__device__ __forceinline__ void cell_bwd_block(const BwdArgs& a, const float* __restrict__ mask,
+                                               int B, int d, int n, int kp, int ld_c,
+                                               float* smem) {
+  const int n4 = 4 * n;
+  const int nchunks = (n4 + kChunk - 1) / kChunk;
+  float* s_dg = smem;                            // [nchunks * kChunk][kTile], j-major
+  float* s_w = smem + nchunks * kChunk * kTile;  // [kStages][kChunk][kp]
+
+  for (int c = 0; c < kStages - 1; ++c) load_wt_chunk(a.wt, n4, kp, c, s_w + c * kChunk * kp);
+
+  // the gate tail's derivative: thread (u, g) owns unit u of its group's kRows
+  // rows, as in the forward, and so reads and overwrites only its own gates
+  const int u = threadIdx.x;
+  const int row_first = blockIdx.x * kTile + threadIdx.y * kRows;
+  float keep[kRows], dg[4][kRows];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const int row = row_first + j;
+    keep[j] = 1.0f;
+    dg[0][j] = dg[1][j] = dg[2][j] = dg[3][j] = 0.0f;
+    if (row < B) {
+      if (mask != nullptr) keep[j] = 1.0f - mask[row];
+      float* gp = a.gates + (size_t)row * n4 + u;
+      const float ig = gp[0], fg = gp[n], og = gp[2 * n], cg = gp[3 * n];
+      const size_t off = (size_t)row * n + u;
+      const float cm = a.c_prev[(size_t)row * ld_c + u] * keep[j];
+      const float tc = tanhf(a.c_new[off]);
+      const float dh = (a.dh_up != nullptr ? a.dh_up[off] : 0.0f) +
+                       (a.dh_rec != nullptr ? a.dh_rec[off] : 0.0f);
+      const float dc = (a.dc_up != nullptr ? a.dc_up[off] : 0.0f) +
+                       (a.dc_rec != nullptr ? a.dc_rec[off] : 0.0f);
+      const float dct = dc + dh * og * (1.0f - tc * tc);
+      dg[0][j] = dct * cg * ig * (1.0f - ig);
+      dg[1][j] = dct * cm * fg * (1.0f - fg);
+      dg[2][j] = dh * tc * og * (1.0f - og);
+      dg[3][j] = dct * ig * (1.0f - cg * cg);
+      a.dc_out[off] = dct * fg * keep[j];
+      gp[0] = dg[0][j]; gp[n] = dg[1][j]; gp[2 * n] = dg[2][j]; gp[3 * n] = dg[3][j];
+    }
+  }
+  float* s_grp = s_dg + threadIdx.y * kRows;
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int j = 0; j < kRows; j += 4)
+      *reinterpret_cast<float4*>(s_grp + (g * n + u) * kTile + j) =
+          make_float4(dg[g][j], dg[g][j + 1], dg[g][j + 2], dg[g][j + 3]);
+  for (int k = n4 + u; k < nchunks * kChunk; k += n)
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) s_grp[k * kTile + j] = 0.0f;
+
+  // out[row][col] = sum_j dgates[row][j] * wt[j][col]
+  float acc[kRows][kCols];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r)
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) acc[r][q] = 0.0f;
+  int stage = 0;
+  for (int c = 0; c < nchunks; ++c) {
+    // as in the forward: chunk c has landed, chunk c - 1 is consumed (the
+    // first pass also publishes the tile of dgates)
+    __pipeline_wait_prior(kStages - 2);
+    __syncthreads();
+    const int next = stage == 0 ? kStages - 1 : stage - 1;
+    load_wt_chunk(a.wt, n4, kp, c + kStages - 1, s_w + next * kChunk * kp);
+    const float* sw = s_w + stage * kChunk * kp + u;
+    const float* si = s_grp + c * kChunk * kTile;
+#pragma unroll
+    for (int kk = 0; kk < kChunk; ++kk) {
+      float in[kRows], w[kCols];
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) w[q] = sw[kk * kp + q * n];
+#pragma unroll
+      for (int r = 0; r < kRows; r += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(si + kk * kTile + r);
+        in[r] = v.x; in[r + 1] = v.y; in[r + 2] = v.z; in[r + 3] = v.w;
+      }
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int q = 0; q < kCols; ++q) acc[r][q] += in[r] * w[q];
+    }
+    stage = stage == kStages - 1 ? 0 : stage + 1;
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int row = row_first + r;
+    if (row < B) {
+      a.dh_out[(size_t)row * n + u] = acc[r][0] * keep[r];
+#pragma unroll
+      for (int q = 1; q < kCols; ++q) {
+        const int col = (q - 1) * n + u;
+        if (col < d) a.dx_out[(size_t)row * d + col] = acc[r][q];
+      }
+    }
+  }
+}
+
+// gridDim.y towers (1 or 2); mask (B,) or null.
+template <int kCols>
+__global__ void __launch_bounds__(kMaxThreads)
+lstm_cell_bwd_kernel(BwdArgs a0, BwdArgs a1, const float* __restrict__ mask, int B, int d,
+                     int n, int kp, int ld_c) {
+  extern __shared__ __align__(16) float smem[];
+  const bool second = blockIdx.y != 0;
+  const BwdArgs a = {second ? a1.gates : a0.gates,   second ? a1.c_prev : a0.c_prev,
+                     second ? a1.c_new : a0.c_new,   second ? a1.dh_up : a0.dh_up,
+                     second ? a1.dh_rec : a0.dh_rec, second ? a1.dc_up : a0.dc_up,
+                     second ? a1.dc_rec : a0.dc_rec, second ? a1.wt : a0.wt,
+                     second ? a1.dc_out : a0.dc_out, second ? a1.dh_out : a0.dh_out,
+                     second ? a1.dx_out : a0.dx_out};
+  cell_bwd_block<kCols>(a, mask, B, d, n, kp, ld_c, smem);
+}
+
+constexpr int kMaxCols = 2;  // dx up to n wide
+
+inline size_t bwd_smem_bytes(int n, int kp) {
+  const size_t steps = (size_t)((4 * n + kChunk - 1) / kChunk) * kChunk;
+  return sizeof(float) * (steps * kTile + (size_t)kStages * kChunk * kp);
+}
+
+inline bool bwd_shape_ok(int d, int n, int cols, int kp) {
+  return d >= 0 && n > 0 && n * kGroups <= kMaxThreads && cols >= 1 && cols <= kMaxCols &&
+         d <= (cols - 1) * n && kp % 4 == 0 && kp >= cols * n &&
+         bwd_smem_bytes(n, kp) <= (size_t)kMaxSmem;
 }
 
 inline size_t smem_bytes(int d, int n) {
@@ -260,6 +463,55 @@ extern "C" int lstm_cell_pair_launch(const void* const* ptrs, const float* mask,
     const Strides ld = {ld_x, ld_h, ld_c, ld_out};
     lstm_cell_pair_kernel<<<dim3((B + kTile - 1) / kTile, 2), dim3(n, kGroups),
                             smem_bytes(d, n), stream>>>(a[0], a[1], mask, ld, B, d, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// towers: 1 or 2. ptrs: 9 device pointers a tower, on the host: x h c wx wh b
+// h_out c_out gates_out. mask: (B,) device pointer or null.
+extern "C" int lstm_cell_train_launch(const void* const* ptrs, const float* mask, int towers,
+                                      int B, int d, int n, int ld_x, int ld_h, int ld_c,
+                                      int ld_out, cudaStream_t stream) {
+  if (!shape_ok(d, n) || towers < 1 || towers > 2) return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    CellArgs a[2];
+    float* gates[2];
+    for (int t = 0; t < 2; ++t) {
+      const void* const* p = ptrs + 9 * (t < towers ? t : 0);
+      a[t] = {(const float*)p[0], (const float*)p[1], (const float*)p[2], (const float*)p[3],
+              (const float*)p[4], (const float*)p[5], (float*)p[6], (float*)p[7]};
+      gates[t] = (float*)p[8];
+    }
+    const Strides ld = {ld_x, ld_h, ld_c, ld_out};
+    lstm_cell_train_kernel<<<dim3((B + kTile - 1) / kTile, towers), dim3(n, kGroups),
+                             smem_bytes(d, n), stream>>>(a[0], a[1], gates[0], gates[1], mask,
+                                                         ld, B, d, n);
+  }
+  return (int)cudaGetLastError();
+}
+
+// towers: 1 or 2. ptrs: 11 device pointers a tower, on the host, in the order
+// of BwdArgs. d: columns of dx to write (0: none); cols: 1 + ceil(d / n);
+// kp: columns of wt. ld_c: row stride of c_prev.
+extern "C" int lstm_cell_bwd_launch(const void* const* ptrs, const float* mask, int towers, int B,
+                                    int d, int n, int cols, int kp, int ld_c,
+                                    cudaStream_t stream) {
+  if (!bwd_shape_ok(d, n, cols, kp) || towers < 1 || towers > 2)
+    return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    BwdArgs a[2];
+    for (int t = 0; t < 2; ++t) {
+      const void* const* p = ptrs + 11 * (t < towers ? t : 0);
+      a[t] = {(float*)p[0],        (const float*)p[1], (const float*)p[2], (const float*)p[3],
+              (const float*)p[4],  (const float*)p[5], (const float*)p[6], (const float*)p[7],
+              (float*)p[8],        (float*)p[9],       (float*)p[10]};
+    }
+    const dim3 grid((B + kTile - 1) / kTile, towers), block(n, kGroups);
+    const size_t smem = bwd_smem_bytes(n, kp);
+    if (cols == 1)
+      lstm_cell_bwd_kernel<1><<<grid, block, smem, stream>>>(a[0], a[1], mask, B, d, n, kp, ld_c);
+    else
+      lstm_cell_bwd_kernel<2><<<grid, block, smem, stream>>>(a[0], a[1], mask, B, d, n, kp, ld_c);
   }
   return (int)cudaGetLastError();
 }

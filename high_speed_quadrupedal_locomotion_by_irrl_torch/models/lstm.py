@@ -12,6 +12,14 @@ kernel on the card: one launch a layer. Where the towers differ in depth or
 width, such a layer goes through :func:`..ops.lstm_cuda.lstm_cell`, one launch
 a tower. :func:`lstm_cell` and :func:`lstm_cell_pair` here are the kernel's
 plain PyTorch versions.
+
+:func:`sequence` is the BPTT forward. It walks the stack layer by layer, each
+layer over the whole sequence through
+:func:`..ops.lstm_cuda.lstm_layer_sequence` (on the card the training-mode
+kernel and, in the backward pass, the hand-written backward kernel; on the CPU
+the plain cells under autograd). A layer depends only on the layer below, so
+this computes what a loop over time of :func:`forward` computes, and the heads
+are applied once to the stacked latents.
 """
 
 from __future__ import annotations
@@ -45,6 +53,23 @@ class PolicyParams:
     logstd: torch.Tensor  # (act,)
     vf_w: torch.Tensor    # (h, 1)
     vf_b: torch.Tensor    # (1,)
+
+    def named_leaves(self) -> list[tuple[str, torch.Tensor]]:
+        """The parameter tensors in a fixed order (the JAX pytree's): pi_lstm,
+        v_lstm layer by layer (wx, wh, b), then pi_w, pi_b, logstd, vf_w, vf_b."""
+        out = [(f"{tower}.{i}.{k}", getattr(w, k))
+               for tower in ("pi_lstm", "v_lstm")
+               for i, w in enumerate(getattr(self, tower)) for k in ("wx", "wh", "b")]
+        return out + [(k, getattr(self, k)) for k in ("pi_w", "pi_b", "logstd", "vf_w", "vf_b")]
+
+    def leaves(self) -> list[torch.Tensor]:
+        return [t for _, t in self.named_leaves()]
+
+    def requires_grad_(self, flag: bool = True) -> "PolicyParams":
+        """Make every leaf trainable (in place); the leaves an optimizer takes."""
+        for t in self.leaves():
+            t.requires_grad_(flag)
+        return self
 
 
 def state_size(n_lstm: Sequence[int]) -> int:
@@ -165,6 +190,39 @@ def forward(params: PolicyParams, obs: torch.Tensor, state: torch.Tensor,
     mean = pi_latent @ params.pi_w + params.pi_b
     value = (v_latent @ params.vf_w + params.vf_b)[..., 0]
     packed = torch.cat([t for ch in pi_chs + v_chs for t in ch], dim=-1)
+    return ForwardOut(mean=mean, value=value, state=packed, logstd=params.logstd)
+
+
+def sequence(params: PolicyParams, obs_seq: torch.Tensor, done_seq: torch.Tensor,
+             init_state: torch.Tensor) -> ForwardOut:
+    """BPTT forward over (T, B, 35) obs and (T, B) dones from the (B, S)
+    initial state: means (T, B, act), values (T, B) and the final state."""
+    chs = _split_state(params, init_state)
+    n_pi, n_v = len(params.pi_lstm), len(params.v_lstm)
+    mask = done_seq.to(obs_seq.dtype)
+    pi_latent = v_latent = obs_seq
+    pi_last, v_last = [], []
+    for layer in range(max(n_pi, n_v)):
+        w_pi = params.pi_lstm[layer] if layer < n_pi else None
+        w_v = params.v_lstm[layer] if layer < n_v else None
+        if (w_pi is not None and w_v is not None and w_pi.wx.shape == w_v.wx.shape
+                and w_pi.wh.shape == w_v.wh.shape):
+            (c_pi, pi_latent), (c_v, v_latent) = lstm_cuda.lstm_layer_sequence(
+                (w_pi, w_v), (pi_latent, v_latent), mask, (chs[layer], chs[n_pi + layer]))
+            pi_last.append((c_pi[-1], pi_latent[-1]))
+            v_last.append((c_v[-1], v_latent[-1]))
+            continue
+        if w_pi is not None:
+            [(c_pi, pi_latent)] = lstm_cuda.lstm_layer_sequence(
+                (w_pi,), (pi_latent,), mask, (chs[layer],))
+            pi_last.append((c_pi[-1], pi_latent[-1]))
+        if w_v is not None:
+            [(c_v, v_latent)] = lstm_cuda.lstm_layer_sequence(
+                (w_v,), (v_latent,), mask, (chs[n_pi + layer],))
+            v_last.append((c_v[-1], v_latent[-1]))
+    mean = pi_latent @ params.pi_w + params.pi_b
+    value = (v_latent @ params.vf_w + params.vf_b)[..., 0]
+    packed = torch.cat([t for ch in pi_last + v_last for t in ch], dim=-1)
     return ForwardOut(mean=mean, value=value, state=packed, logstd=params.logstd)
 
 

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from high_speed_quadrupedal_locomotion_by_irrl_torch import config
+from high_speed_quadrupedal_locomotion_by_irrl_torch.models import io as mio
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import lstm_cuda, pd_torque, phys_cuda
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as lanes
@@ -159,6 +160,175 @@ def test_lstm_pair_kernel_matches_plain(cuda, B, d, masked):
     assert lstm_cuda.launches == before + 1
     for a, b in zip(got, want):   # f32 gate products of length <= 96, another order
         torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def _leaf(t):
+    return t.detach().clone().requires_grad_()
+
+
+def _layer_problem(B, d, towers, masked, T, device, seed, need_dx=True):
+    """One layer of ``towers`` towers over T steps: leaf tensors for the
+    weights, the inputs (views of one wider buffer; leaves only if
+    ``need_dx``) and one packed initial state read through strided views, and
+    a (T, B) mask."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *s, scale=1.0: scale * torch.randn(s, generator=g, device=device)  # noqa: E731
+    n = 48
+    xs_all = r(T, B, towers * d)
+    leaves = {"state": _leaf(r(B, 2 * n * towers + 5))}
+    if need_dx:
+        leaves["xs"] = _leaf(xs_all)
+    for i in range(towers):
+        leaves.update({f"wx{i}": _leaf(r(d, 4 * n, scale=0.2)), f"wh{i}": _leaf(r(n, 4 * n, scale=0.2)),
+                       f"b{i}": _leaf(r(4 * n, scale=0.1))})
+    mask = (torch.rand(T, B, generator=g, device=device) < 0.3).float() if masked else None
+    weights = [(r(T, B, n), r(T, B, n)) for _ in range(towers)]   # of the scalar loss
+
+    def run(layer_fn, lv, probes=None):
+        # probes: a (B, 4n) zero leaf a tower, added to the bias of the plain cells, whose
+        # gradient is that of the pre-activation gates row by row (summed over the steps)
+        bias = lambda i: lv[f"b{i}"] if probes is None else lv[f"b{i}"] + probes[i]  # noqa: E731
+        ws = [lstm.LSTMWeights(lv[f"wx{i}"], lv[f"wh{i}"], bias(i)) for i in range(towers)]
+        x_all = lv["xs"] if need_dx else xs_all
+        xs = [x_all[:, :, i * d:(i + 1) * d] for i in range(towers)]
+        states = [(lv["state"][:, 2 * n * i:2 * n * i + n], lv["state"][:, 2 * n * i + n:2 * n * (i + 1)])
+                  for i in range(towers)]
+        out = layer_fn(ws, xs, mask, states)
+        loss = sum((c * wc).sum() + (h * wh).sum() for (c, h), (wc, wh) in zip(out, weights))
+        return out, loss
+    return leaves, run
+
+
+@pytest.mark.parametrize("B", [1024, 37, 5])
+@pytest.mark.parametrize("d", [35, 48])
+@pytest.mark.parametrize("towers,masked,T,need_dx", [
+    (2, True, 1, True), (2, False, 1, True), (1, True, 1, True), (2, True, 4, True),
+    (1, False, 3, True), (2, True, 4, False), (1, True, 1, False)])
+def test_lstm_backward_kernel_matches_autograd(cuda, B, d, towers, masked, T, need_dx):
+    """The training-mode forward and the backward kernel, through the autograd
+    Function, against autograd of the plain cells: outputs, and the gradient
+    of every input (dx, dc, dh through strided views of a packed state, dWx,
+    dWh, db), with gradients arriving at every step's c' and h'. Without
+    ``need_dx`` the inputs ask for no gradient, as a first layer's: the kernel
+    then computes dh alone."""
+    leaves, run = _layer_problem(B, d, towers, masked, T, cuda, seed=B + d + T, need_dx=need_dx)
+    plain_leaves = {k: _leaf(v) for k, v in leaves.items()}
+    before = (lstm_cuda.train_launches, lstm_cuda.bwd_launches)
+    got, loss = run(lstm_cuda.lstm_layer_sequence, leaves)
+    kept = got[0][0].grad_fn.gates   # the activated gates; the backward turns them into dgates
+    loss.backward()
+    probes = [torch.zeros(B, 192, device=cuda, requires_grad=True) for _ in range(towers)]
+    want, loss_plain = run(lstm_cuda.lstm_layer_sequence_plain, plain_leaves, probes)
+    loss_plain.backward()
+    torch.cuda.synchronize()
+    assert (lstm_cuda.train_launches, lstm_cuda.bwd_launches) == (before[0] + T, before[1] + T)
+    for (c, h), (wc, wh) in zip(got, want):   # f32 gate products of length <= 96, another order
+        torch.testing.assert_close(c, wc, atol=1e-5, rtol=0)
+        torch.testing.assert_close(h, wh, atol=1e-5, rtol=0)
+    for k in leaves:
+        # sums over up to T * 1024 rows in another order: relative to the gradient's size
+        scale = float(plain_leaves[k].grad.abs().max())
+        torch.testing.assert_close(leaves[k].grad, plain_leaves[k].grad,
+                                   atol=1e-5 + 1e-4 * scale, rtol=0, msg=lambda m, k=k: f"{k}: {m}")
+    # dgates, which the kernel leaves where the gates were, row by row
+    assert len(kept) == towers
+    for i in range(towers):
+        torch.testing.assert_close(kept[i].sum(0), probes[i].grad, rtol=0,
+                                   atol=1e-5 + 1e-4 * float(probes[i].grad.abs().max()))
+
+
+def test_lstm_layer_backward_runs_once(cuda):
+    """The backward overwrites the kept gates: a second walk raises."""
+    leaves, run = _layer_problem(5, 35, 2, True, 2, cuda, seed=0)
+    _, loss = run(lstm_cuda.lstm_layer_sequence, leaves)
+    loss.backward(retain_graph=True)
+    with pytest.raises(RuntimeError, match="second time"):
+        loss.backward()
+
+
+def test_lstm_layer_refuses_dx_wider_than_n(cuda):
+    """A backward thread owns at most one column of dx: an input wider than
+    the layer that asks for a gradient is refused before any launch, by
+    shape; the same input without a gradient runs."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    r = lambda *s: 0.2 * torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    B, d, n = 5, 35, 16
+    w = lstm.LSTMWeights(_leaf(r(d, 4 * n)), _leaf(r(n, 4 * n)), _leaf(r(4 * n)))
+    state = (r(B, n), r(B, n))
+    before = lstm_cuda.train_launches
+    with pytest.raises(ValueError, match="d = 35, n = 16"):
+        lstm_cuda.lstm_layer_sequence((w,), (_leaf(r(2, B, d)),), None, (state,))
+    assert lstm_cuda.train_launches == before
+    [(c, h)] = lstm_cuda.lstm_layer_sequence((w,), (r(2, B, d),), None, (state,))
+    (c.sum() + h.sum()).backward()
+    assert w.wx.grad is not None and lstm_cuda.train_launches == before + 2
+
+
+def test_cell_wrappers_with_grad_match_plain(cuda):
+    """lstm_cell and lstm_cell_pair given a tensor that requires grad go
+    through the Function (one training-mode and one backward launch) and
+    agree with the plain cells in value and gradient; without one they
+    launch the inference kernel as before."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    r = lambda *s, scale=1.0: scale * torch.randn(s, generator=g, device=cuda)  # noqa: E731
+    B, d = 37, 35
+    base = dict(wx=r(d, 192, scale=0.2), wh=r(48, 192, scale=0.2), b=r(192, scale=0.1),
+                x=r(B, d), c=r(B, 48), h=r(B, 48))
+    grads = []
+    for fn in (lstm_cuda.lstm_cell, lstm.lstm_cell):
+        lv = {k: _leaf(v) for k, v in base.items()}
+        before = (lstm_cuda.launches, lstm_cuda.train_launches, lstm_cuda.bwd_launches)
+        c, h = fn(lstm.LSTMWeights(lv["wx"], lv["wh"], lv["b"]), lv["x"], lv["c"], lv["h"])
+        (c.sin().sum() + h.cos().sum()).backward()
+        if fn is lstm_cuda.lstm_cell:
+            assert (lstm_cuda.launches, lstm_cuda.train_launches, lstm_cuda.bwd_launches) == (
+                before[0], before[1] + 1, before[2] + 1)
+        grads.append({k: v.grad for k, v in lv.items()})
+    for k in base:
+        torch.testing.assert_close(grads[0][k], grads[1][k], rtol=0,
+                                   atol=1e-5 + 1e-4 * float(grads[1][k].abs().max()))
+    w = lstm.LSTMWeights(base["wx"], base["wh"], base["b"])
+    before = (lstm_cuda.launches, lstm_cuda.train_launches)
+    lstm_cuda.lstm_cell(w, base["x"], base["c"], base["h"])
+    assert (lstm_cuda.launches, lstm_cuda.train_launches) == (before[0] + 1, before[1])
+    with pytest.raises(RuntimeError, match="requires grad"):
+        lstm_cuda._lstm_cell_kernel(w, _leaf(base["x"]), base["c"], base["h"])
+
+
+def test_sequence_bptt_through_kernels_matches_plain(cuda, monkeypatch):
+    """models.lstm.sequence on the card: 2 training-mode and 2 backward pair
+    launches a step, and the loss gradient of every parameter leaf agrees
+    with the plain cells under autograd."""
+    T, B = 6, 37
+    g = torch.Generator(device=cuda).manual_seed(9)
+    obs = torch.randn(T, B, 35, generator=g, device=cuda)
+    done = (torch.rand(T, B, generator=g, device=cuda) < 0.2).float()
+    state = torch.randn(B, 384, generator=g, device=cuda)
+    tgt_m, tgt_v = torch.randn(T, B, 12, generator=g, device=cuda), torch.randn(T, B, generator=g, device=cuda)
+    base = lstm.init(torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    results = []
+    for plain in (False, True):
+        p = mio.policy_params_from_numpy(mio.policy_params_to_numpy(base), cuda).requires_grad_()
+        if plain:
+            monkeypatch.setattr(lstm_cuda, "lstm_layer_sequence", lstm_cuda.lstm_layer_sequence_plain)
+        before = (lstm_cuda.train_launches, lstm_cuda.bwd_launches)
+        out = lstm.sequence(p, obs, done, state)
+        loss = ((out.mean - tgt_m) ** 2).mean() + ((out.value - tgt_v) ** 2).mean() + out.state.sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (lstm_cuda.train_launches - before[0], lstm_cuda.bwd_launches - before[1])
+        assert launched == ((0, 0) if plain else (2 * T, 2 * T))
+        results.append((out, loss, p))
+    (o0, l0, p0), (o1, l1, p1) = results
+    torch.testing.assert_close(o0.mean, o1.mean, atol=1e-5, rtol=0)
+    torch.testing.assert_close(o0.value, o1.value, atol=1e-5, rtol=0)
+    torch.testing.assert_close(o0.state, o1.state, atol=1e-5, rtol=0)
+    for (k, a), (_, b) in zip(p0.named_leaves(), p1.named_leaves()):
+        if k == "logstd":
+            assert a.grad is None and b.grad is None
+            continue
+        torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-6 + 1e-4 * float(b.grad.abs().max()),
+                                   msg=lambda m, k=k: f"{k}: {m}")
 
 
 def test_policy_forward_launches_one_kernel_a_layer(cuda):

@@ -148,6 +148,106 @@ def test_forward_and_action_match_jax_over_sequence():
         js, ts = jo.state, to.state
 
 
+@pytest.mark.parametrize("v_layers", [(16, 16), (16,), (8, 16)])
+def test_sequence_matches_jax_with_dones_inside_the_window(v_layers):
+    """The BPTT forward, layer by layer over the whole sequence, against the
+    JAX package's scan over time of forward(): means, values and the final
+    state, with resets inside the window and a non-zero initial state; with
+    towers of one shape (the pair entry) and of different depth or width (the
+    single-tower entry). Also against the port's own forward() stepped over
+    time, which is what the rollout runs."""
+    T, B = 12, 5
+    ka, kb = jax.random.split(jax.random.PRNGKey(4))
+    ja, jb = jlstm.init(ka, n_lstm=(16, 16)), jlstm.init(kb, n_lstm=v_layers)
+    jp = ja._replace(v_lstm=jb.v_lstm, vf_w=jb.vf_w, vf_b=jb.vf_b)
+    tp = tio.policy_params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    S = 2 * 32 + 2 * sum(v_layers)
+    rng = np.random.default_rng(21)
+    obs = rng.normal(size=(T, B, 35)).astype(np.float32)
+    done = (rng.random((T, B)) < 0.25).astype(np.float32)
+    assert done[1:].sum() > 0
+    state = (0.5 * rng.normal(size=(B, S))).astype(np.float32)
+    want = jlstm.sequence(jp, jnp.asarray(obs), jnp.asarray(done), jnp.asarray(state))
+    got = tlstm.sequence(tp, torch.from_numpy(obs), torch.from_numpy(done), torch.from_numpy(state))
+    # a 12-step f32 recurrence, gate products summed in another order
+    np.testing.assert_allclose(got.mean.numpy(), np.asarray(want.mean), atol=1e-5)
+    np.testing.assert_allclose(got.value.numpy(), np.asarray(want.value), atol=1e-5)
+    np.testing.assert_allclose(got.state.numpy(), np.asarray(want.state), atol=1e-5)
+    assert got.mean.shape == (T, B, 12) and got.value.shape == (T, B) and got.state.shape == (B, S)
+    ts = torch.from_numpy(state)
+    for t in range(T):
+        step = tlstm.forward(tp, torch.from_numpy(obs[t]), ts, torch.from_numpy(done[t]))
+        np.testing.assert_allclose(got.mean[t].numpy(), step.mean.numpy(), atol=1e-6)
+        np.testing.assert_allclose(got.value[t].numpy(), step.value.numpy(), atol=1e-6)
+        ts = step.state
+    np.testing.assert_allclose(got.state.numpy(), ts.numpy(), atol=1e-6)
+
+
+def test_sequence_gradients_match_jax():
+    """BPTT on the CPU (plain cells under autograd): the gradient of a loss
+    on means, values and the final state with respect to every weight and to
+    the initial state, against jax.grad through lstm.sequence."""
+    T, B = 10, 4
+    jp = jlstm.init(jax.random.PRNGKey(5), n_lstm=(16, 16))
+    tp = tio.policy_params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu").requires_grad_()
+    rng = np.random.default_rng(22)
+    obs = rng.normal(size=(T, B, 35)).astype(np.float32)
+    done = (rng.random((T, B)) < 0.2).astype(np.float32)
+    state = (0.5 * rng.normal(size=(B, 128))).astype(np.float32)
+    tgt = rng.normal(size=(T, B, 12)).astype(np.float32)
+
+    def jloss(p, s0):
+        out = jlstm.sequence(p, jnp.asarray(obs), jnp.asarray(done), s0)
+        return (jnp.mean((out.mean - tgt) ** 2) + jnp.mean(out.value ** 2)
+                + jnp.mean(jnp.sin(out.state)))
+
+    jg, jgs = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(state))
+    s0 = torch.from_numpy(state).requires_grad_()
+    out = tlstm.sequence(tp, torch.from_numpy(obs), torch.from_numpy(done), s0)
+    (torch.mean((out.mean - torch.from_numpy(tgt)) ** 2) + torch.mean(out.value ** 2)
+     + torch.mean(torch.sin(out.state))).backward()
+    want = [np.asarray(x) for x in jax.tree.leaves(jg)]
+    got = tp.leaves()
+    assert len(got) == len(want) == 17
+    for (name, g), w in zip(tp.named_leaves(), want):   # the JAX pytree's leaf order
+        if name == "logstd":
+            assert g.grad is None and not w.any()
+            continue
+        np.testing.assert_allclose(g.grad.numpy(), w, atol=1e-5, rtol=1e-4, err_msg=name)
+    np.testing.assert_allclose(s0.grad.numpy(), np.asarray(jgs), atol=1e-5, rtol=1e-4)
+
+
+def test_raw_kernel_launches_refuse_tensors_that_require_grad():
+    """The raw launch helpers return tensors without a grad_fn, so they raise
+    on an input that requires grad while grad is enabled, before they touch
+    the device; under no_grad, or with nothing to differentiate, the check
+    passes."""
+    w = torch.zeros(3, requires_grad=True)
+    x = torch.zeros(3)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        lstm_cuda._refuse_grad(x, None, w)
+    lstm_cuda._refuse_grad(x, None, x)
+    with torch.no_grad():
+        lstm_cuda._refuse_grad(x, w)
+    tw = tlstm.LSTMWeights(wx=torch.zeros(35, 64, requires_grad=True), wh=torch.zeros(16, 64),
+                           b=torch.zeros(64))
+    cpu = (torch.zeros(2, 35), torch.zeros(2, 16), torch.zeros(2, 16))
+    with pytest.raises(RuntimeError, match="requires grad"):   # raised before any device work
+        lstm_cuda._lstm_cell_kernel(tw, *cpu)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        lstm_cuda._lstm_cell_pair_kernel(tw, tw, cpu[0], cpu[0], *cpu[1:], *cpu[1:], None)
+
+
+def test_named_leaves_order():
+    p = tlstm.init(torch.Generator().manual_seed(0), n_lstm=(16, 16), device="cpu")
+    names = [k for k, _ in p.named_leaves()]
+    assert names[:3] == ["pi_lstm.0.wx", "pi_lstm.0.wh", "pi_lstm.0.b"]
+    assert names[6] == "v_lstm.0.wx" and names[-5:] == ["pi_w", "pi_b", "logstd", "vf_w", "vf_b"]
+    assert not any(t.requires_grad for t in p.leaves())
+    assert all(t.requires_grad for t in p.requires_grad_().leaves())
+    assert p.leaves()[9] is p.v_lstm[1].wx and len(p.leaves()) == 17
+
+
 def test_distribution_ops_match_jax():
     rng = np.random.default_rng(3)
     mean, action = (rng.normal(size=(6, 12)).astype(np.float32) for _ in range(2))
