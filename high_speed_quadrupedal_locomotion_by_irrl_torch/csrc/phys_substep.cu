@@ -41,7 +41,11 @@
 //   box corners.
 // * phys_control_step_kernel keeps the state in registers over the substeps
 //   and computes each lane's 3 joint torques itself; the PD gains and the
-//   motor envelope arrive by value.
+//   motor envelope arrive by value. The Convert2Torque inputs (a torque
+//   feedforward and a PD scale, (12, B) each, held over the control step)
+//   are two nullable pointers read once a lane: a null one reads as 0 and 1,
+//   which x 1 and + 0 leave exact, so the PD path is the same instruction
+//   stream whether or not they are given.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -567,12 +571,16 @@ __device__ __forceinline__ void substep_lane(const float* __restrict__ prm, size
 #undef PRM
 }
 
-// PD -> smoothing quirk -> motor model -> envelope clamp for link k of a leg
-// (ops/pd_torque.pd_torque, elementwise).
+// PD -> x pd_scale -> smoothing quirk -> + tau_ff -> motor model -> envelope
+// clamp for link k of a leg (ops/pd_torque.pd_torque, elementwise; the JAX
+// package's _pd_torque order).
 __device__ __forceinline__ float pd_torque(const PdConsts& pd, int k, float ptarget,
-                                           float torque_norm_last, float q, float qd) {
+                                           float torque_norm_last, float q, float qd,
+                                           float pd_scale, float tau_ff) {
   float tau = pd.kp[k] * (ptarget - q) - pd.kd[k] * qd;
+  tau = tau * pd_scale;
   tau = 0.99f * tau + 0.01f * torque_norm_last;
+  tau = tau + tau_ff;
   if (pd.motor_dynamics) {
     const float gear = pd.gear[k];
     const float i_des = tau / gear / (pd.motor_kt * 1.5f);
@@ -667,12 +675,14 @@ phys_substep_kernel(const float* __restrict__ prm, const float* __restrict__ gc,
 }
 
 // n_substeps x {PD torque from the fresh state -> substep}; writes the final
-// state, the last substep's toe rows and the last substep's torque.
+// state, the last substep's toe rows and the last substep's torque. tau_ff
+// and pd_scale may be null (0 and 1).
 __global__ void __launch_bounds__(kThreads)
 phys_control_step_kernel(const float* __restrict__ prm, const float* __restrict__ gc,
                          const float* __restrict__ gv, const float* __restrict__ ptarget,
                          const float* __restrict__ torque_norm_last,
-                         const float* __restrict__ bw, float* __restrict__ out, int B,
+                         const float* __restrict__ bw, const float* __restrict__ tau_ff,
+                         const float* __restrict__ pd_scale, float* __restrict__ out, int B,
                          int n_substeps, float slip_vel, float impulse_scale, float dt,
                          PdConsts pd) {
   const Lane l = lane_of_thread(B);
@@ -680,11 +690,14 @@ phys_control_step_kernel(const float* __restrict__ prm, const float* __restrict_
   LaneState s;
   LaneDiag d;
   load_state(gc, gv, sB, l, s);
-  float pt[3], tnl[3], t[3], w[6];
+  float pt[3], tnl[3], ff[3], ps[3], t[3], w[6];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    pt[k] = ptarget[(3 * l.leg + k) * sB + l.e];
-    tnl[k] = torque_norm_last[(3 * l.leg + k) * sB + l.e];
+    const size_t at = (3 * l.leg + k) * sB + l.e;
+    pt[k] = ptarget[at];
+    tnl[k] = torque_norm_last[at];
+    ff[k] = tau_ff ? tau_ff[at] : 0.0f;
+    ps[k] = pd_scale ? pd_scale[at] : 1.0f;
     t[k] = 0.0f;
   }
 #pragma unroll
@@ -692,7 +705,9 @@ phys_control_step_kernel(const float* __restrict__ prm, const float* __restrict_
 #pragma unroll 1
   for (int it = 0; it < n_substeps; ++it) {
 #pragma unroll
-    for (int k = 0; k < 3; ++k) t[k] = pd_torque(pd, k, pt[k], tnl[k], s.q[k], s.qd[k]);
+    for (int k = 0; k < 3; ++k) {
+      t[k] = pd_torque(pd, k, pt[k], tnl[k], s.q[k], s.qd[k], ps[k], ff[k]);
+    }
     substep_lane(prm, sB, l.e, l.leg, s, t, w, slip_vel, impulse_scale, dt, d);
   }
   store_state(out, sB, l, s, d);
@@ -723,10 +738,11 @@ extern "C" int phys_substep_launch(const float* prm, const float* gc, const floa
 // pd_host: 22 floats on the host, kp[3] kd[3] knee_ratio[3] gear[3], then
 // motor max torque, critical speed, max speed and the envelope's slope, then
 // the motor model's kt, resistance, torque limit, battery voltage, damping
-// and friction.
+// and friction. tau_ff and pd_scale: (12, B) rows like ptarget, or null.
 extern "C" int phys_control_step_launch(const float* prm, const float* gc, const float* gv,
                                         const float* ptarget, const float* torque_norm_last,
-                                        const float* bw, float* out, int B, int n_substeps,
+                                        const float* bw, const float* tau_ff,
+                                        const float* pd_scale, float* out, int B, int n_substeps,
                                         float slip_vel, float impulse_scale, float dt,
                                         const float* pd_host, int motor_dynamics,
                                         cudaStream_t stream) {
@@ -751,8 +767,8 @@ extern "C" int phys_control_step_launch(const float* prm, const float* gc, const
   pd.motor_dynamics = motor_dynamics;
   if (B > 0) {
     phys_control_step_kernel<<<blocks_for(B), kThreads, 0, stream>>>(
-        prm, gc, gv, ptarget, torque_norm_last, bw, out, B, n_substeps, slip_vel,
-        impulse_scale, dt, pd);
+        prm, gc, gv, ptarget, torque_norm_last, bw, tau_ff, pd_scale, out, B, n_substeps,
+        slip_vel, impulse_scale, dt, pd);
   }
   return (int)cudaGetLastError();
 }

@@ -479,21 +479,28 @@ class _Diag(NamedTuple):
 
 
 def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
-               gen: torch.Generator) -> StepOut:
+               gen: torch.Generator, tau_ff: torch.Tensor | None = None,
+               pd_scale: torch.Tensor | None = None) -> StepOut:
     """One control step of every env with auto-reset (blackpanther.py:793-854).
 
     The cfg.substeps (8) physics substeps, each after the PD torque from the
     fresh state, are one call of :func:`..ops.phys_cuda.control_step`: one
     launch of the CUDA kernel for tensors on the card, the plain loop on the
-    CPU. Only the last substep's torque and toe rows are used after it."""
+    CPU. Only the last substep's torque and toe rows are used after it.
+
+    ``tau_ff``/``pd_scale`` ((B, 12) each, optional) are the Convert2Torque
+    actuation of the JAX ``step``: a joint-torque feedforward and a scale on
+    the PD feedback, held over the control step's substeps."""
     _check_supported(cfg)
     pre = _pre_substeps(cfg, states, actions, gen)
     P = lanes.params_to_lanes(states.params)
+    rows = lambda x: None if x is None else x.T.contiguous()  # noqa: E731
     gcT, gvT, toe, toe_vel, fnorm, fnormal, tauT = phys_cuda.control_step(
         P, pd_torque.from_config(cfg), pre.gc.T.contiguous(), pre.gv.T.contiguous(),
         pre.ptarget.T.contiguous(), states.torque_norm_last.T.contiguous(),
         pre.base_wrench.T.contiguous(), cfg.substeps, cfg.contact_slip_vel,
-        cfg.contact_impulse_mass / cfg.simulation_dt, cfg.simulation_dt)
+        cfg.contact_impulse_mass / cfg.simulation_dt, cfg.simulation_dt,
+        rows(tau_ff), rows(pd_scale))
     diag = _Diag(toe_pos=toe.permute(2, 0, 1), toe_vel=toe_vel.permute(2, 0, 1),
                  toe_force_norm=fnorm.T, toe_normal_force=fnormal.T)
     return _post_substeps(cfg, states, gen, gcT.T.contiguous(), gvT.T.contiguous(),

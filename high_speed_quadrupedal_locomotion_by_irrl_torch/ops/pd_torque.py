@@ -99,12 +99,20 @@ def real_torque(torque: torch.Tensor, qd: torch.Tensor, friction: bool = True) -
 
 
 def pd_torque(pd: PDConsts, ptarget: torch.Tensor, torque_norm_last: torch.Tensor,
-              q: torch.Tensor, qd: torch.Tensor) -> torch.Tensor:
-    """PD -> smoothing quirk -> motor model -> envelope clamp, elementwise
-    over (..., 12). The smoothing mixes in 1% of the *normalized* torque of
-    the previous control step, as the reference does."""
+              q: torch.Tensor, qd: torch.Tensor, tau_ff: torch.Tensor | None = None,
+              pd_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """PD -> ``x pd_scale`` -> smoothing quirk -> ``+ tau_ff`` -> motor model
+    -> envelope clamp, elementwise over (..., 12). The smoothing mixes in 1% of
+    the *normalized* torque of the previous control step, as the reference
+    does. ``tau_ff``/``pd_scale`` are the Convert2Torque inputs (a joint-torque
+    feedforward and a scale on the PD feedback; JAX ``_pd_torque``); the
+    envelope clamp applies to the sum."""
     tau = _per_joint(pd.kp, q.device) * (ptarget - q) - _per_joint(pd.kd, q.device) * qd
+    if pd_scale is not None:
+        tau = tau * pd_scale
     tau = 0.99 * tau + 0.01 * torque_norm_last
+    if tau_ff is not None:
+        tau = tau + tau_ff
     if pd.motor_dynamics:
         tau = real_torque(tau, qd)
     return torque_clamp(pd, tau, qd)

@@ -9,8 +9,10 @@ body:
   the TPU kernel computes.
 * :func:`control_step` runs the ``n_substeps`` substeps of a control step,
   each after the PD torque of :mod:`..ops.pd_torque` from the fresh state, in
-  one launch with the state in registers. Its plain version is
-  :func:`control_step_plain`, the Python loop over the two plain functions.
+  one launch with the state in registers. Its optional Convert2Torque inputs
+  (a torque feedforward and a PD scale, (12, B) each) are held over the
+  substeps. Its plain version is :func:`control_step_plain`, the Python loop
+  over the two plain functions.
 
 For tensors on the CPU both run their plain version; for CUDA tensors they
 launch the kernel (four lanes an env, one per leg) or raise, never falling
@@ -61,7 +63,7 @@ def _fns():
     lib = _build.load("phys_substep")
     sub, step = lib.phys_substep_launch, lib.phys_control_step_launch
     sub.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_void_p]
-    step.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
+    step.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
                      + [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p])
     sub.restype = step.restype = ctypes.c_int
     return sub, step
@@ -117,35 +119,42 @@ def substep(P: lanes.LaneParams, gcT: torch.Tensor, gvT: torch.Tensor,
 
 def control_step_plain(P: lanes.LaneParams, pd: pdt.PDConsts, gcT, gvT, ptargetT,
                        torque_norm_lastT, base_wrenchT, n_substeps: int, slip_vel: float,
-                       impulse_scale: float, dt: float):
+                       impulse_scale: float, dt: float, tau_ffT=None, pd_scaleT=None):
     """The plain version of :func:`control_step`: ``n_substeps`` times the
     plain PD torque from the fresh state, then the plain substep."""
     ptarget, tnl = ptargetT.T, torque_norm_lastT.T
+    tau_ff = None if tau_ffT is None else tau_ffT.T
+    pd_scale = None if pd_scaleT is None else pd_scaleT.T
     for _ in range(n_substeps):
-        tauT = pdt.pd_torque(pd, ptarget, tnl, gcT[7:].T, gvT[6:].T).T.contiguous()
+        tauT = pdt.pd_torque(pd, ptarget, tnl, gcT[7:].T, gvT[6:].T, tau_ff,
+                             pd_scale).T.contiguous()
         gcT, gvT, toe, toe_vel, fnorm, fnormal = lanes.substep(
             P, gcT, gvT, tauT, base_wrenchT, slip_vel, impulse_scale, dt)
     return gcT, gvT, toe, toe_vel, fnorm, fnormal, tauT
 
 
 def _control_step_kernel(P, pd, gcT, gvT, ptargetT, torque_norm_lastT, base_wrenchT,
-                         n_substeps, slip_vel, impulse_scale, dt):
+                         n_substeps, slip_vel, impulse_scale, dt, tau_ffT=None, pd_scaleT=None):
     global launches
     device, B = gcT.device, gcT.shape[-1]
     prm = pack_params(P)
     for name, x, rows in (("params", prm, P_ROWS), ("gcT", gcT, 19), ("gvT", gvT, 18),
                           ("ptargetT", ptargetT, 12),
                           ("torque_norm_lastT", torque_norm_lastT, 12),
-                          ("base_wrenchT", base_wrenchT, 6)):
-        _check(name, x, rows, B, device)
+                          ("base_wrenchT", base_wrenchT, 6), ("tau_ffT", tau_ffT, 12),
+                          ("pd_scaleT", pd_scaleT, 12)):
+        if x is not None:
+            _check(name, x, rows, B, device)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     out = torch.empty((STEP_OUT_ROWS, B), dtype=torch.float32, device=device)
     consts = (ctypes.c_float * 22)(*pack_pd_consts(pd))
     _, fn = _fns()
     with torch.cuda.device(device):
         err = fn(prm.data_ptr(), gcT.data_ptr(), gvT.data_ptr(), ptargetT.data_ptr(),
-                 torque_norm_lastT.data_ptr(), base_wrenchT.data_ptr(), out.data_ptr(), B,
-                 int(n_substeps), float(slip_vel), float(impulse_scale), float(dt), consts,
-                 int(pd.motor_dynamics), _stream(device))
+                 torque_norm_lastT.data_ptr(), base_wrenchT.data_ptr(), ptr(tau_ffT),
+                 ptr(pd_scaleT), out.data_ptr(), B, int(n_substeps), float(slip_vel),
+                 float(impulse_scale), float(dt), consts, int(pd.motor_dynamics),
+                 _stream(device))
     _build.check(err, "phys_control_step_launch")
     launches += 1
     return _views(out, B) + (out[69:81],)
@@ -154,16 +163,19 @@ def _control_step_kernel(P, pd, gcT, gvT, ptargetT, torque_norm_lastT, base_wren
 def control_step(P: lanes.LaneParams, pd: pdt.PDConsts, gcT: torch.Tensor, gvT: torch.Tensor,
                  ptargetT: torch.Tensor, torque_norm_lastT: torch.Tensor,
                  base_wrenchT: torch.Tensor, n_substeps: int, slip_vel: float,
-                 impulse_scale: float, dt: float):
+                 impulse_scale: float, dt: float, tau_ffT: torch.Tensor | None = None,
+                 pd_scaleT: torch.Tensor | None = None):
     """One control step of physics. (19,B),(18,B) state, (12,B) position
-    targets and last normalized torques, (6,B) base wrench -> (gcT', gvT')
-    after ``n_substeps`` substeps, the last substep's toe (4,3,B), toe_vel
-    (4,3,B), force norm (4,B) and normal force (4,B), and the last substep's
-    joint torque (12,B)."""
+    targets and last normalized torques, (6,B) base wrench, optional (12,B)
+    torque feedforward and PD scale -> (gcT', gvT') after ``n_substeps``
+    substeps, the last substep's toe (4,3,B), toe_vel (4,3,B), force norm
+    (4,B) and normal force (4,B), and the last substep's joint torque (12,B).
+    ``None`` for a Convert2Torque input is the PD path (a feedforward of 0,
+    a scale of 1), bit for bit."""
     if n_substeps < 1:
         raise ValueError(f"control step: need n_substeps >= 1, got {n_substeps}")
     args = (P, pd, gcT, gvT, ptargetT, torque_norm_lastT, base_wrenchT, n_substeps, slip_vel,
-            impulse_scale, dt)
+            impulse_scale, dt, tau_ffT, pd_scaleT)
     if gcT.device.type == "cpu":
         return control_step_plain(*args)
     if gcT.device.type != "cuda":

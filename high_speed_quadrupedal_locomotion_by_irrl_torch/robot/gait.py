@@ -3,8 +3,9 @@
 Port of ``robot/gait.gait_reference`` (gait_generator_manual,
 Environment.hpp:1756-1890): per-leg phase offsets, a cubic-Bezier stance
 sweep at -stand_height, a swing arc with a Gaussian apex, and analytic IK
-into joint references. Only the learned policy's imitation profile is ported
-(no Raibert shift, no touchdown matching: those serve the MPC runtimes).
+into joint references. The defaults are the learned policy's imitation
+profile; the SRB runtime adds a Raibert foothold shift (``xy_shift``) and the
+touchdown-matched profile (``touchdown_match``).
 """
 
 from __future__ import annotations
@@ -54,8 +55,14 @@ def swing_up_height(cfg: EnvConfig, command: torch.Tensor) -> torch.Tensor:
                        ratio * cfg.up_height)
 
 
-def toe_targets(cfg: EnvConfig, command: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """(B, 4, 3) toe positions in the hip frames at gait time t (B,)."""
+def toe_targets(cfg: EnvConfig, command: torch.Tensor, t: torch.Tensor,
+                touchdown_match: bool = False) -> torch.Tensor:
+    """(B, 4, 3) toe positions in the hip frames at gait time t (B,).
+
+    touchdown_match=True is the MPC-grade profile of the JAX package
+    (``gait.toe_targets``): a linear stance sweep, and a late-swing retraction
+    whose rate at touchdown equals the stance sweep's, so the foot lands
+    moving with the ground. The default is the reference's generator."""
     dev = command.device
     gait_step = command[..., 0] * cfg.lam * cfg.period
     if cfg.wildcat:
@@ -78,10 +85,18 @@ def toe_targets(cfg: EnvConfig, command: torch.Tensor, t: torch.Tensor) -> torch
     in_stance = phase < cfg.lam
     r_st = phase / cfg.lam
     r_sw = (phase - cfg.lam) / (1.0 - cfg.lam)
-    b_st = _bezier_blend(r_st)[..., None]
+    if touchdown_match:
+        b_st = torch.clamp(r_st, 0.0, 1.0)[..., None]     # linear, constant rate
+    else:
+        b_st = _bezier_blend(r_st)[..., None]
     toe_st = p_fwd + b_st * (p_back - p_fwd)
     b_sw = _bezier_blend(r_sw)[..., None]
     toe_sw_xy = p_back[..., :2] + b_sw * (p_fwd[..., :2] - p_back[..., :2])
+    if touchdown_match:
+        # parabolic retraction over the last 20% of swing (gait.py:101-108)
+        u = torch.clamp((r_sw - 0.8) / 0.2, 0.0, 1.0)[..., None]
+        rate = (p_fwd[..., :2] - p_back[..., :2]) * (1.0 - cfg.lam) / cfg.lam
+        toe_sw_xy = toe_sw_xy - 0.5 * 0.2 * rate * u ** 2
     toe_sw_z = p_back[..., 2] + _gauss(r_sw, 1.0, up[..., None])
     toe_sw = torch.cat([toe_sw_xy, toe_sw_z[..., None]], dim=-1)
     return torch.where(in_stance[..., None], toe_st, toe_sw)
@@ -93,11 +108,16 @@ def hip_y_offsets(cfg: EnvConfig) -> np.ndarray:
                      -L_HIP + cfg.lean_hind, L_HIP - cfg.lean_hind])
 
 
-def gait_reference(cfg: EnvConfig, command: torch.Tensor, t: torch.Tensor) -> GaitRef:
+def gait_reference(cfg: EnvConfig, command: torch.Tensor, t: torch.Tensor,
+                   xy_shift: torch.Tensor | None = None,
+                   touchdown_match: bool = False) -> GaitRef:
     """Joint + end-effector reference at gait time t (B,) for the filtered
-    command (B, 3)."""
+    command (B, 3). xy_shift (B, 2): a horizontal Raibert foothold correction
+    added to every toe target of an env (the SRB runtime's form)."""
     dev = command.device
-    toe = toe_targets(cfg, command, t)
+    toe = toe_targets(cfg, command, t, touchdown_match)
+    if xy_shift is not None:
+        toe = torch.cat([toe[..., :2] + xy_shift[..., None, :], toe[..., 2:]], dim=-1)
     ik_in = toe.clone()
     ik_in[..., 1] = ik_in[..., 1] + dev_mod.tensor(hip_y_offsets(cfg), dev)
     joint_ref = legs_ik(ik_in)

@@ -9,7 +9,10 @@ test_ops.py:85-86). The fused control step is held by a chain: the single
 substep strictly against the plain version; the fused kernel tightly against
 8 x {plain PD torque + single-substep kernel} on the card (the same device
 code, so only the torque's rounding differs); and loosely against its plain
-loop, since 8 substeps of stiff penalty contact amplify rounding.
+loop, since 8 substeps of stiff penalty contact amplify rounding. The
+control step's Convert2Torque inputs (torque feedforward, PD scale) are held
+against the plain loop at the SRB closed loop's impulse scale, and leaving
+them out must equal, bit for bit, a feedforward of 0 and a scale of 1.
 """
 
 import numpy as np
@@ -137,6 +140,53 @@ def test_control_step_kernel_chain(cuda, B, n_substeps, motor_dynamics):
     # 1.2e-3 on gv and 1.1e-3 Nm, held at some 6x that
     for i, atol in enumerate(CHAIN_C_ATOL):
         torch.testing.assert_close(got[i], plain[i], atol=atol, rtol=1e-3 if i in (4, 5) else 0)
+
+
+def convert2torque_inputs(B, seed, device, which):
+    """(tau_ffT, pd_scaleT) as (12, B) rows, or None where ``which`` leaves one
+    out: stance-like feedforward torques of up to ~25 Nm and PD scales in
+    [0, 1.5]."""
+    rng = np.random.default_rng(seed + 2)
+    t = lambda x: torch.tensor(x, dtype=torch.float32, device=device).contiguous()  # noqa: E731
+    ff = t(8.0 * rng.normal(size=(12, B))) if which in ("both", "tau_ff") else None
+    ps = t(rng.uniform(0.0, 1.5, size=(12, B))) if which in ("both", "pd_scale") else None
+    return ff, ps
+
+
+@pytest.mark.parametrize("B", [1024, 5, 1])
+@pytest.mark.parametrize("motor_dynamics", [False, True])
+@pytest.mark.parametrize("which", ["both", "tau_ff", "pd_scale", "none"])
+def test_control_step_convert2torque_matches_plain(cuda, B, motor_dynamics, which):
+    """The Convert2Torque inputs at the closed loop's impulse scale
+    (contact_impulse_mass 2.0 / simulation_dt), against the plain loop at the
+    tolerances of chain (c)."""
+    cfg = config.test_default()
+    args = _control_inputs(B, B + 7, cuda, motor_dynamics)
+    tail = (cfg.substeps, cfg.contact_slip_vel, 2.0 / cfg.simulation_dt, cfg.simulation_dt)
+    ff, ps = convert2torque_inputs(B, B, cuda, which)
+    before = phys_cuda.launches
+    got = phys_cuda.control_step(*args, *tail, ff, ps)
+    torch.cuda.synchronize()
+    assert phys_cuda.launches == before + 1
+    plain = phys_cuda.control_step_plain(*args, *tail, ff, ps)
+    for i, atol in enumerate(CHAIN_C_ATOL):
+        torch.testing.assert_close(got[i], plain[i], atol=atol, rtol=1e-3 if i in (4, 5) else 0)
+
+
+@pytest.mark.parametrize("B", [1024, 5, 1])
+@pytest.mark.parametrize("motor_dynamics", [False, True])
+def test_control_step_null_inputs_are_the_pd_path(cuda, B, motor_dynamics):
+    """Inputs left out compute, bit for bit, what tau_ff = 0 and pd_scale = 1
+    compute (x 1 and + 0 are exact in f32)."""
+    cfg = config.test_default()
+    args = _control_inputs(B, B + 9, cuda, motor_dynamics)
+    tail = (cfg.substeps, cfg.contact_slip_vel, 2.0 / cfg.simulation_dt, cfg.simulation_dt)
+    zeros = torch.zeros(12, B, device=cuda)
+    omitted = phys_cuda.control_step(*args, *tail)
+    given = phys_cuda.control_step(*args, *tail, zeros, zeros + 1.0)
+    torch.cuda.synchronize()
+    for a, b in zip(omitted, given):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("B", [1024, 37, 5])
@@ -393,6 +443,12 @@ def test_wrappers_refuse_bad_cuda_input(cuda):
                                0.1, 0.0, 2.5e-4)
     with pytest.raises(ValueError, match="n_substeps"):
         phys_cuda.control_step(P, pd, gc, gv, z12, z12, bw, 0, 0.1, 0.0, 2.5e-4)
+    with pytest.raises(ValueError, match="tau_ffT.*shape"):
+        phys_cuda.control_step(P, pd, gc, gv, z12, z12, bw, 8, 0.1, 0.0, 2.5e-4,
+                               z12[:11].contiguous(), None)
+    with pytest.raises(ValueError, match="pd_scaleT.*float32"):
+        phys_cuda.control_step(P, pd, gc, gv, z12, z12, bw, 8, 0.1, 0.0, 2.5e-4, None,
+                               z12.double())
     ch = torch.zeros(4, 48, device=cuda)
     with pytest.raises(ValueError, match="shape"):
         lstm_cuda.lstm_cell_pair(w, w, x, x[:3], ch, ch, ch, ch)

@@ -44,6 +44,8 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'high_speed_quadrupedal_locomotion_by_irrl_tpu'))
 print(len(names), bad)
 assert len(names) >= 15, names
+slice4 = {'mpc.srb', 'mpc.runtime', 'ops.linalg', 'analysis.rawdata', 'analysis.parity', 'cli.mpc'}
+assert {pkg.__name__ + '.' + m for m in slice4} <= set(names), names
 assert not bad, bad
 """
 
