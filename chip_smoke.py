@@ -52,13 +52,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    through the JAX package's lanes physics, the path the port takes; ms a
    control step split into the solve and the env step, timed in the same
    run, and PyTorch ops of each;
-10. ``analysis.parity.srb_vs_bp5`` at cmd 1 on the flagship artifact (through
+10. terrain evaluation: the round-5 terrain policy on
+   ``configs/bp5_relax_terrain.yaml`` (the deployment protocol of
+   ``scripts/terrain_eval_seeds.py``) at commands 1-3 x the 8 map offsets of
+   JAX's ``env_init(cfg, PRNGKey(k))``, k < 8: 24 envs in one batch for 1500
+   control steps through both kernels (1 physics and 2 LSTM launches a step,
+   asserted). Each rollout's base coordinates after 50 and 100 steps within
+   2e-3 of the JAX lanes loop's; per command the mean over the 8 offsets of
+   the trailing-40 % forward speed within 0.1 m/s of the JAX lanes loop's,
+   and its falls equal to JAX's;
+11. terrain training: the port's ``cli.train`` with the flags of
+   ``scripts/r5_terrain_leg.sh`` and ``--terrain-z-curriculum 0.05,0.1`` at
+   1024 envs x 750 steps x 10 epochs for 2 updates: z_scale 0.05 then 0.1,
+   the launch counts of all four kernels, finite loss, gradient norm and
+   metrics, ``metrics.jsonl``, and the final checkpoint evaluated by
+   ``cli.test`` on the terrain config; seconds an update split into rollout,
+   GAE and epochs, and PyTorch ops a control step of the terrain rollout;
+12. ``analysis.parity.srb_vs_bp5`` at cmd 1 on the flagship artifact (through
    the LSTM and physics kernels) against the JAX package's on the CPU.
 
 Phase 3 also holds the control step with its Convert2Torque inputs (a torque
 feedforward and a PD scale) against its plain loop, at the closed loop's
 impulse scale, and checks that leaving them out is bit for bit a feedforward
-of 0 and a scale of 1.
+of 0 and a scale of 1; and the control step on terrain (the heightmap's sum
+and 16 samples against the CPU's, then 1024 envs at offsets spread over the
+whole map, z_scale 0.1) against its plain loop at (c)'s tolerances, with
+z_scale 0 giving the flat kernel's bits, timed with and without terrain.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
@@ -97,6 +116,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import (
 )
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as lanes
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
+from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import terrain
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import metrics as metrics_io
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -256,6 +276,153 @@ JAX_SRB_VS_BP5 = {"mae": 0.16217844188213348, "mae_stance": 0.13062961399555206,
 # the port's plain path on the CPU reads each within 3e-8 of these; the kernels sum the
 # 251 policy steps in another order (serving: v_mean within 1e-4 m/s of JAX over 2000 steps)
 SRB_VS_BP5_ATOL = 1e-3
+# terrain: the heightmap (phys/terrain.fractal_grid, float32 from float64 numpy): its
+# float64 sum and 16 samples at TERRAIN_GRID_AT, on the CPU
+TERRAIN_GRID_SUM = -5344.233182615517
+TERRAIN_GRID_AT = [(iy, ix) for iy in (0, 137, 311, 499) for ix in (0, 1234, 3777, 4999)]
+TERRAIN_GRID_SAMPLES = [-1.0215143, 0.000930800452, -0.0437323749, 0.614381552, 0.573010445,
+                        0.468553603, -0.0701041594, -0.0857668743, -0.360639185, 0.398596466,
+                        0.331270993, 0.529157877, 0.467479616, -0.329513848, 0.685890794,
+                        0.1813609]
+# operations of one lookup: clip((p + off) / cell) and floor and the fraction, per axis;
+# the bilinear weights, products and sum; the scale; the penetration's p - h
+TERRAIN_LOOKUP_OPS = 2 * 6 + 2 + 8 + 3 + 1 + 1
+TERRAIN_LOOKUPS_PER_ENV = 4 + 8   # a substep: the 4 toes and the 8 base corners
+TERRAIN_CFG = os.path.join(ROOT, "high_speed_quadrupedal_locomotion_by_irrl_torch", "configs",
+                           "bp5_relax_terrain.yaml")
+# the round-5 terrain pick (its README.txt and docs/evidence/terrain_entropy_floor_r5.md),
+# and the warm start of the round-5 terrain leg (scripts/r5_terrain_leg.sh)
+TERRAIN_EVAL_ARTIFACT = os.path.join(ROOT, "artifacts", "irrl_tpu_terrain_relaxed_r5")
+TERRAIN_TRAIN_ARTIFACT = os.path.join(ROOT, "artifacts", "irrl_tpu_terrain_relaxed")
+TERRAIN_STEPS, TERRAIN_K, TERRAIN_COMMANDS = 1500, 8, (1.0, 2.0, 3.0)
+TERRAIN_BASE_ATOL = 2e-3
+TERRAIN_TRAIN_UPDATES, TERRAIN_Z = 2, (0.05, 0.1)
+TERRAIN_TRAIN_LOG_DIR = os.path.join(ROOT, "runs", "chip_smoke_terrain")
+FLAT_TRAIN_OPS_PER_STEP = 1356   # the flat training rollout's, PERF.md (PR 3, PR 4)
+# The JAX package on the CPU, produced by
+#   PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_terrain.py lanes 1500
+# the 8 offsets (JAX env_init(cfg, PRNGKey(k)) splits k_tr from the key; terrain.py:110-118);
+# per command the trailing-40 % forward speed of each offset's rollout (signed as
+# tracking_eval signs it; WILDCAT) and the falls of all 8, of the JAX loop stepped through
+# its lanes physics (the port's path: step_batch with ground_fn, a vertical contact normal)
+# with all 24 rollouts in one batch; and per command and offset the base coordinates
+# (gc[:7]) after 50 and 100 control steps of that loop
+JAX_TERRAIN_OFFSETS = [[52.91752624511719, 5.825139999389648],
+                       [211.4585418701172, 26.907268524169922],
+                       [448.273193359375, 25.30275535583496],
+                       [60.397857666015625, 26.621549606323242],
+                       [305.1337890625, 28.129886627197266],
+                       [83.52532958984375, 14.143020629882812],
+                       [127.15415954589844, 24.987327575683594],
+                       [320.0534362792969, 37.97855758666992]]
+JAX_TERRAIN_LANES = {1.0: ([0.8206678032875061, 0.8592565059661865, 0.7321487665176392,
+                            0.8692985773086548, 0.9118210673332214, 0.8366967439651489,
+                            0.7661536335945129, 0.7598686814308167],
+                           0),
+                     2.0: ([2.194965124130249, 2.2446839809417725, 2.225972890853882,
+                            2.235283613204956, 2.2577977180480957, 1.9908078908920288,
+                            2.2014458179473877, 2.1291580200195312],
+                           0),
+                     3.0: ([2.986271381378174, 2.834362268447876, 3.5060689449310303,
+                            3.397728681564331, 2.53635311126709, 3.0702881813049316,
+                            3.3686041831970215, 2.9432032108306885],
+                           0)}
+JAX_TERRAIN_BASE = [[[[0.00068636128, -0.00307377963, 0.254630417, 0.999886096, 0.0101633603,
+                       0.0101740733, 0.00457480457],
+                      [-0.0269276313, -0.0186046306, 0.240167141, 0.999459863, 0.0138910133,
+                       0.0184243228, 0.0234009773]],
+                     [[0.000717094401, 0.000149674524, 0.321831614, 0.999787986, 0.00281912158,
+                       0.020398099, 0.000230996025],
+                      [-0.0306765754, -0.0022616412, 0.306955159, 0.999001503, 0.00800363161,
+                       0.043824885, -0.00334339589]],
+                     [[0.000913254335, -0.000565577357, 0.23354204, 0.999988496, 0.00473866286,
+                       -0.000429404608, 0.000579877465],
+                      [-0.0347471051, -0.00315763103, 0.202471823, 0.999973655, 0.00538499514,
+                       -0.00478655566, 0.000852041645]],
+                     [[0.00123400625, -0.000505152682, 0.283813566, 0.999934494, 0.00293399813,
+                       -0.0110600749, 0.000180275863],
+                      [-0.0320857689, 0.000711625325, 0.259005815, 0.999656975, 0.00395542337,
+                       -0.025281623, -0.00557140447]],
+                     [[0.000756727823, -0.000370726397, 0.388425648, 0.999904931, 0.00269755558,
+                       0.0134045146, 0.00176328956],
+                      [-0.0327811576, -0.00491760066, 0.368689269, 0.999385476, 0.00752799492,
+                       0.0340412371, 0.00363318273]],
+                     [[0.00119343121, 0.000152486056, 0.257116377, 0.999979496, 0.00128420058,
+                       -0.00625846861, -0.00039813554],
+                      [-0.0298750494, 0.00611544214, 0.234040409, 0.999750197, 0.00163149333,
+                       -0.0191986039, -0.0113239558]],
+                     [[0.000932379626, 1.27971107e-05, 0.251153052, 0.999968886, 0.00324629503,
+                       0.00718627404, 0.000134158327],
+                      [-0.0330764167, -0.000234658466, 0.22834231, 0.999912679, 0.00560192205,
+                       0.0119530028, -0.000594474084]],
+                     [[0.000806411321, 9.39280435e-05, 0.379364997, 0.999956489, 0.00308805541,
+                       0.00879961532, 0.000283834466],
+                      [-0.0349948332, -0.000164863464, 0.355602741, 0.99976331, 0.00692852121,
+                       0.0202984698, -0.00363326725]]],
+                    [[[-0.00209072093, -0.00138651079, 0.251019478, 0.999572814, 0.0112926234,
+                       0.0265546516, 0.0046435874],
+                      [-0.0391661637, -0.0155802676, 0.245990634, 0.997319281, 0.0124766277,
+                       0.0708143637, 0.013559944]],
+                     [[-0.00319665717, 0.00128744647, 0.321379095, 0.999345183, 0.00349108549,
+                       0.0359342992, -0.00236508297],
+                      [-0.0401659422, 0.0029714338, 0.322217971, 0.995525122, 0.00336218462,
+                       0.0922164842, -0.0203590449]],
+                     [[-0.000891760807, 0.000285227346, 0.23307845, 0.999855161, 0.00497265579,
+                       0.0162683222, 0.000438404328],
+                      [-0.0397732072, -0.00301493565, 0.214962289, 0.998516798, 0.00650163554,
+                       0.053437721, -0.00813833252]],
+                     [[-0.000239748304, 0.000186999285, 0.278395504, 0.999927521, 0.00616504392,
+                       0.0103401495, -3.36715093e-05],
+                      [-0.0399683267, -0.0010826498, 0.250919133, 0.999477327, 0.00681333663,
+                       0.0297900289, -0.0105459159]],
+                     [[-0.00228399341, 0.000717322109, 0.389812022, 0.999570847, 0.0044175717,
+                       0.0289509892, -0.000681889185],
+                      [-0.0391914286, 0.00058540277, 0.384982318, 0.996436179, 0.00348174409,
+                       0.083233282, -0.0132308211]],
+                     [[-0.000654875825, 0.00100561883, 0.251867682, 0.999886692, 0.00297403568,
+                       0.0146425366, -0.0018230353],
+                      [-0.0392895937, 0.00734135602, 0.224462971, 0.998884022, 0.00322074816,
+                       0.0374685228, -0.0285743009]],
+                     [[-0.00143572432, 0.00104351691, 0.250603259, 0.999753118, 0.00248191669,
+                       0.0220109336, -0.00175390625],
+                      [-0.0400763005, 0.00330639002, 0.241032451, 0.997485399, 0.00296433666,
+                       0.067888543, -0.0201306939]],
+                     [[-0.0016085325, 0.000852614758, 0.380244941, 0.999721229, 0.0031145066,
+                       0.0233743507, -0.00120226922],
+                      [-0.039817173, 0.00126769708, 0.371159971, 0.997269809, 0.00399314985,
+                       0.0717508048, -0.0169957913]]],
+                    [[[-0.0044021043, -0.000664544466, 0.250415087, 0.999287665, 0.010978994,
+                       0.0358560309, 0.00422475068],
+                      [-0.0362186283, -0.00943816174, 0.243543267, 0.994608343, 0.00850646012,
+                       0.10323479, 0.00494434964]],
+                     [[-0.00541838165, 0.00166938535, 0.321338862, 0.999047935, 0.00435261009,
+                       0.0432887152, -0.00321899215],
+                      [-0.0389344245, 0.00596976606, 0.321340829, 0.993132889, -0.000279272877,
+                       0.113603838, -0.0279486794]],
+                     [[-0.00292658294, 0.000827089942, 0.233909041, 0.999637723, 0.0059426818,
+                       0.0262434166, -0.000570159173],
+                      [-0.036243923, 0.00228663953, 0.213009968, 0.996262372, 0.00218571001,
+                       0.0840167329, -0.0199423693]],
+                     [[-0.0022235238, 0.000846713665, 0.278681844, 0.999753475, 0.00437570363,
+                       0.0217559636, -0.000745650148],
+                      [-0.0349728167, 0.00382585195, 0.24868679, 0.997218251, 0.000645208987,
+                       0.0709980428, -0.0226839315]],
+                     [[-0.00466512656, 0.00132234278, 0.390161812, 0.999261856, 0.00515679782,
+                       0.0380100682, -0.00208231923],
+                      [-0.0384849124, 0.00453636376, 0.385345697, 0.994052529, 0.000218463349,
+                       0.106231764, -0.0239643529]],
+                     [[-0.0026474765, 0.001562519, 0.252363592, 0.99968183, 0.000884417212,
+                       0.0250204206, -0.0030635458],
+                      [-0.0357430466, 0.0094117308, 0.224991828, 0.996524096, -0.00368532725,
+                       0.0748420805, -0.0363975354]],
+                     [[-0.00347875012, 0.0015579419, 0.2507267, 0.999530852, 0.00248133205,
+                       0.0303799082, -0.00299846521],
+                      [-0.0373347253, 0.00754362578, 0.234381288, 0.995393634, -0.00179565663,
+                       0.0904549733, -0.0317195132]],
+                     [[-0.00386988884, 0.00141640299, 0.380802721, 0.999448299, 0.00403415971,
+                       0.0328763686, -0.00245685293],
+                      [-0.0379060991, 0.00575478189, 0.369173557, 0.994928241, -0.000194636596,
+                       0.0966926217, -0.0277177524]]]]
 
 
 def log(msg: str) -> None:
@@ -346,7 +513,8 @@ def count_ops(fn) -> int:
     return c.ops
 
 
-def phys_ops_per_env(n_substeps: int, pd_law: bool, motor_dynamics: bool = False) -> int:
+def phys_ops_per_env(n_substeps: int, pd_law: bool, motor_dynamics: bool = False,
+                     terrain: bool = False) -> int:
     """Arithmetic operations one env needs for ``n_substeps`` physics substeps,
     each after a PD torque if ``pd_law``: a multiply, an add and a compare
     count one each (a fused multiply-add two), as do a square root, a
@@ -355,7 +523,8 @@ def phys_ops_per_env(n_substeps: int, pd_law: bool, motor_dynamics: bool = False
     once an env: composite RNEA and CRBA about the world origin and the
     leg-first solve of the block-arrow mass matrix. (The plain version's
     per-body projections and dense 18x18 Cholesky take some 2.6 times as
-    many, which the function does not need.)"""
+    many, which the function does not need.) On ``terrain`` each substep adds
+    a bilinear lookup under each of the 4 toes and 8 base corners."""
     cross, dot6 = 9, 11
     si_apply = 2 * cross + 18 + 6          # symmetric 3x3 product, two crosses, m v - h x w
     project = cross + 3
@@ -381,7 +550,8 @@ def phys_ops_per_env(n_substeps: int, pd_law: bool, motor_dynamics: bool = False
             + 103 + 36 + 36                # 6x6 Cholesky, forward and backward substitution
             + 18 + 56)                     # base integration, exp-map quaternion update
     pd_joint = (7 + 14 + (22 if motor_dynamics else 0)) if pd_law else 0
-    return n_substeps * (4 * leg + base + 12 * pd_joint)
+    lookups = TERRAIN_LOOKUPS_PER_ENV * TERRAIN_LOOKUP_OPS if terrain else 0
+    return n_substeps * (4 * leg + base + 12 * pd_joint + lookups)
 
 
 def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
@@ -631,6 +801,122 @@ def _check_phys(rec: dict) -> None:
         f"pd_scale {c2t['ms']:.4f} ms on the device ({c2t['source']}), without "
         f"{pd_path['ms']:.4f} ms; bound with them {c2t_b_ms:.5f} ms ({c2t_b_by}); max |err| vs "
         f"the plain loop over {len(c2t_errs)} cases {max(c2t_errs):.3g}")
+
+
+class _GridCells:
+    """Inside, the distinct heightmap samples that the plain terrain lookups
+    read (the four corners of each lookup's cell), as flat indices."""
+
+    def __enter__(self):
+        self.saved, self.cells = terrain._bilinear, []
+
+        def recorded(g, ox, oy, cell, z_scale, x, y):
+            ny, nx = g.shape
+            ix = torch.floor(torch.clamp((x + ox) / cell, 0.0, nx - 1.001)).long()
+            iy = torch.floor(torch.clamp((y + oy) / cell, 0.0, ny - 1.001)).long()
+            at = iy * nx + ix
+            self.cells.append(torch.cat([at, at + 1, at + nx, at + nx + 1]).flatten())
+            return self.saved(g, ox, oy, cell, z_scale, x, y)
+        terrain._bilinear = recorded
+        return self
+
+    def __exit__(self, *exc):
+        terrain._bilinear = self.saved
+
+    def count(self) -> int:
+        return int(torch.unique(torch.cat(self.cells)).numel())
+
+
+def _terrain_inputs(B: int, seed: int, z_scale: float = 0.1):
+    """Control-step inputs on terrain: offsets spread over the whole map (some
+    past its edges, where the lookup clips), each base 0.30 m above the ground
+    under it."""
+    args = list(_control_inputs(B, seed, motor_dynamics=False))
+    rng = np.random.default_rng(seed + 3)
+    off = np.stack([rng.uniform(-5.0, 505.0, B), rng.uniform(-5.0, 55.0, B)], -1)
+    tp = terrain.at_offsets(torch.tensor(off, dtype=torch.float32, device=DEVICE), z_scale)
+    gc = args[2].clone()
+    gc[2] += terrain.height(tp, gc[0], gc[1])
+    args[2] = gc
+    return args, terrain.rows(tp)
+
+
+def _check_phys_terrain(rec: dict) -> None:
+    """The control step on terrain: the heightmap the card got, the kernel
+    against its plain loop, z_scale 0 against flat ground, times and bound."""
+    cfg = config.test_default()
+    g = terrain.grid(torch.device(DEVICE))
+    gsum = float(g.double().sum())
+    samples = [float(g[iy, ix]) for iy, ix in TERRAIN_GRID_AT]
+    s_err = max(abs(a - b) for a, b in zip(samples, TERRAIN_GRID_SAMPLES))
+    if not (abs(gsum - TERRAIN_GRID_SUM) <= 1e-6 * abs(TERRAIN_GRID_SUM) and s_err <= 1e-6):
+        raise RuntimeError(f"the heightmap differs from the CPU's: sum {gsum} (CPU "
+                           f"{TERRAIN_GRID_SUM}), samples off by {s_err}")
+    log(f"[3] terrain heightmap {tuple(g.shape)}: sum {gsum:.9g} (CPU {TERRAIN_GRID_SUM:.9g}), "
+        f"16 samples within {s_err:.2g} of the CPU's")
+    tail = (cfg.substeps, cfg.contact_slip_vel, 0.0, cfg.simulation_dt)
+    errs, cells = [], 0
+    for B in (FULL_B, 37):
+        args, terr = _terrain_inputs(B, seed=B + 21)
+        got = phys_cuda.control_step(*args, *tail, terrain=terr)
+        with _GridCells() as gcells:
+            plain = phys_cuda.control_step_plain(*args, *tail, terrain=terr)
+        flat = phys_cuda.control_step(*args, *tail)
+        torch.cuda.synchronize()
+        if torch.equal(got[5], flat[5]):
+            raise RuntimeError("the terrain changed no contact force")
+        errs.append(_assert_rows(got, plain, STEP_ATOL, 1e-3))
+        if B == FULL_B:
+            cells = gcells.count()
+        by_row = ", ".join(f"{n} {float((a - b).abs().max()):.2g}" for n, a, b in zip(
+            ("gc", "gv", "toe", "toe vel", "|f|", "fn", "torque"), got, plain))
+        log(f"[3] control_step on terrain B={B} x{cfg.substeps}: vs plain loop max |err| "
+            f"{errs[-1]:.3g} ({by_row})")
+    args, terr0 = _terrain_inputs(FULL_B, seed=5, z_scale=0.0)
+    zero = phys_cuda.control_step(*args, *tail, terrain=terr0)
+    flat = phys_cuda.control_step(*args, *tail)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(zero, flat)):
+        raise RuntimeError("control_step with the grid at z_scale 0 differs from flat ground")
+    log(f"[3] control_step B={FULL_B}: grid at z_scale 0 == flat ground, bit for bit")
+
+    args, terr = _terrain_inputs(FULL_B, seed=FULL_B + 21)
+    # flat and terrain in turns (flat, terrain, terrain, flat, twice), each turn the
+    # median of REPS launches; the record reads the median turn of each, with the
+    # SM clock and power draw read after the last
+    turns = {"flat": [], "terrain": []}
+    for which in ("flat", "terrain", "terrain", "flat") * 2:
+        t = terr if which == "terrain" else None
+        turns[which].append(timings(lambda: phys_cuda.control_step(*args, *tail, terrain=t),
+                                    kernel="phys_control_step_kernel"))
+    on, off = (min(turns[k], key=lambda r, k=k: abs(r["ms"] - statistics.median(
+        x["ms"] for x in turns[k]))) for k in ("terrain", "flat"))
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader"], capture_output=True, text=True,
+                            timeout=60).stdout.strip()
+    plain = timings(lambda: phys_cuda.control_step_plain(*args, *tail, terrain=terr), reps=1)
+    t_ops = FULL_B * phys_ops_per_env(cfg.substeps, pd_law=True, terrain=True)
+    # the flat step's rows, each env's offset (2), cell and scale, and the distinct
+    # samples the lookups of this input read
+    t_bytes = 4 * (FULL_B * (phys_cuda.P_ROWS + 19 + 18 + 12 + 12 + 6 + phys_cuda.STEP_OUT_ROWS
+                             + 4) + cells)
+    t_b_ms, t_b_by = bound_ms(t_bytes, t_ops)
+    rec["phys_substep"].update(
+        terrain_max_abs_err=max(errs), terrain_ms=on["ms"], terrain_call_ms=on["call_ms"],
+        terrain_flat_ms=off["ms"], terrain_plain_ms=plain["ms"],
+        terrain_plain_call_ms=plain["call_ms"], terrain_bound_ms=t_b_ms,
+        terrain_bound_by=t_b_by, terrain_bytes=t_bytes, terrain_ops=t_ops,
+        terrain_grid_cells=cells, terrain_zero_bitwise=True, terrain_grid_sum=gsum,
+        terrain_turns_ms={k: [r["ms"] for r in v] for k, v in turns.items()},
+        terrain_clocks=clocks)
+    rec["phys_substep"]["time_source"].update(control_step_terrain=on["source"])
+    log(f"[3] control_step B={FULL_B} x{cfg.substeps} on terrain: {on['ms']:.4f} ms on the device "
+        f"({on['source']}), flat {off['ms']:.4f} ms (median turns; terrain "
+        + " ".join(f"{r['ms']:.4f}" for r in turns["terrain"]) + ", flat "
+        + " ".join(f"{r['ms']:.4f}" for r in turns["flat"]) + f"; SM clock, power after: "
+        f"{clocks}); plain loop {plain['ms']:.2f} ms device / {plain['call_ms']:.2f} ms a call; "
+        f"bound {t_b_ms:.5f} ms ({t_b_by}: {t_bytes} B with {cells} distinct heightmap "
+        f"samples, {t_ops} ops needed)")
 
 
 def _lstm_pair_inputs(B: int, d: int, n: int, seed: int, masked: bool):
@@ -930,6 +1216,7 @@ def _check_lstm_training(rec: dict) -> None:
 def phase_kernels() -> dict:
     rec = {"phys_substep": {}, "lstm_cell": {}}
     _check_phys(rec)
+    _check_phys_terrain(rec)
     _check_lstm(rec)
     _check_lstm_training(rec)
     return rec
@@ -1284,7 +1571,7 @@ def phase_training() -> dict:
             "epoch_kernel_ms": by_kernel}
 
 
-# --- phases 8, 9 and 10 -----------------------------------------------------------
+# --- phases 8 to 12 ---------------------------------------------------------------
 
 def riccati_flops(nx: int = srb.NX, nu: int = srb.NU) -> int:
     """Operations of one knot of the dense affine Riccati sweep and forward
@@ -1476,16 +1763,136 @@ def phase_mpc() -> dict:
             "launches": counts, "split": {"ms": ms, "ops": ops}}
 
 
+def phase_terrain_eval() -> dict:
+    """The terrain policy at cmd 1-3 x JAX's 8 map offsets, one batch of 24
+    envs, against the JAX lanes loop: base coordinates after 50 and 100
+    steps, the mean speed over the offsets and the falls of each command."""
+    cfg = ev._fixed_command_cfg(config.from_yaml(TERRAIN_CFG)).replace(crucial=False)
+    params = mio.load_bp5_csv(TERRAIN_EVAL_ARTIFACT, device=DEVICE)
+    cmd_of = [vx for vx in TERRAIN_COMMANDS for _ in range(TERRAIN_K)]
+    cmds = np.array([[vx, 0.0, 0.0] for vx in cmd_of], np.float32)
+    offsets = torch.tensor(JAX_TERRAIN_OFFSETS * len(TERRAIN_COMMANDS), dtype=torch.float32,
+                           device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(cfg.seed)
+    ev.policy_rollout(cfg, params, cmds, gen, 2, device=DEVICE, terrain_offset=offsets)  # warm-up
+    reset_counts()
+    t0 = time.perf_counter()
+    logr = ev.policy_rollout(cfg, params, cmds, gen, TERRAIN_STEPS, device=DEVICE,
+                             terrain_offset=offsets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(counts, rollout_counts(TERRAIN_STEPS), "10")
+    for name in ("gc", "gv", "action", "lstm_state"):
+        if not torch.isfinite(getattr(logr, name)).all():
+            raise RuntimeError(f"non-finite {name} in the terrain rollout")
+    rows = ev.tracking_rows(cfg, logr, cmd_of)
+    want_base = np.array(JAX_TERRAIN_BASE).reshape(len(cmd_of), 2, 7)
+    got_base = torch.stack([logr.gc[49, :, :7], logr.gc[99, :, :7]], 1).cpu().numpy()
+    base_err = np.abs(got_base - want_base).max(axis=(1, 2))
+    failed = [f"cmd {cmd_of[b]:g} offset {b % TERRAIN_K}: base off by {base_err[b]:.3g}"
+              for b in range(len(cmd_of)) if not base_err[b] <= TERRAIN_BASE_ATOL]
+    by_cmd = {}
+    for i, vx in enumerate(TERRAIN_COMMANDS):
+        mine = rows[i * TERRAIN_K:(i + 1) * TERRAIN_K]
+        want_v, want_falls = JAX_TERRAIN_LANES[vx]
+        v, falls = [r["v_mean"] for r in mine], sum(r["falls"] for r in mine)
+        by_cmd[vx] = {"v": v, "v_mean": float(np.mean(v)), "v_std": float(np.std(v)),
+                      "falls": falls, "jax_v": want_v, "jax_v_mean": float(np.mean(want_v)),
+                      "jax_falls": want_falls,
+                      "base_err": float(base_err[i * TERRAIN_K:(i + 1) * TERRAIN_K].max())}
+        log(f"[10] cmd {vx:.1f}: v {np.mean(v):.4f} +- {np.std(v):.4f} over {TERRAIN_K} offsets "
+            f"(JAX lanes {np.mean(want_v):.4f} +- {np.std(want_v):.4f}, diff "
+            f"{np.mean(v) - np.mean(want_v):+.4f}), falls {falls} (JAX {want_falls}); base after "
+            f"50/100 steps within {by_cmd[vx]['base_err']:.2g}; by offset "
+            + " ".join(f"{a:.3f}/{b:.3f}" for a, b in zip(v, want_v)))
+        if not abs(np.mean(v) - np.mean(want_v)) <= V_TOL or falls != want_falls:
+            failed.append(f"cmd {vx:g}: v {np.mean(v)} against JAX {np.mean(want_v)}, falls "
+                          f"{falls} against {want_falls}")
+    if failed:
+        raise RuntimeError("terrain evaluation: " + "; ".join(failed))
+    log(f"[10] {TERRAIN_STEPS} control steps x {len(cmd_of)} envs in {wall:.2f} s: "
+        f"{len(cmd_of) * TERRAIN_STEPS / wall:.0f} env-steps/s, "
+        f"{wall / TERRAIN_STEPS * 1e3:.3f} ms a control step")
+    return {"by_command": by_cmd, "wall_s": wall, "ms_per_step": wall / TERRAIN_STEPS * 1e3,
+            "launches": counts}
+
+
+def phase_terrain_training() -> dict:
+    """cli.train on terrain with the round-5 leg's flags and the z-scale
+    curriculum at the production shape, then its checkpoint through cli.test."""
+    argv = ["--cfg", TERRAIN_CFG, "--load", TERRAIN_TRAIN_ARTIFACT, "--num-envs", str(FULL_B),
+            "--lr", "1e-4", "--lr-final", "2e-5", "--entropy-floor", "5.2",
+            "--terrain-z-curriculum", ",".join(str(z) for z in TERRAIN_Z),
+            "--max-updates", str(TERRAIN_TRAIN_UPDATES), "--log-dir", TERRAIN_TRAIN_LOG_DIR,
+            "--device", DEVICE]
+    env_cfg = config.from_yaml(TERRAIN_CFG).replace(num_envs=FULL_B)
+    if env_cfg.episode_len != TRAIN_STEPS or not env_cfg.terrain:
+        raise RuntimeError("the terrain training shape is not the production one")
+    reset_counts()
+    t0 = time.perf_counter()
+    run_dir = cli_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    rollout_steps = TERRAIN_TRAIN_UPDATES * TRAIN_STEPS
+    bptt_steps = TERRAIN_TRAIN_UPDATES * TRAIN_EPOCHS * TRAIN_STEPS
+    check_counts(counts, {
+        "phys_substep": PHYS_LAUNCHES_PER_STEP * rollout_steps,
+        "lstm_cell": LSTM_LAUNCHES_PER_STEP * (rollout_steps + TERRAIN_TRAIN_UPDATES),
+        "lstm_cell_train": 2 * bptt_steps, "lstm_cell_bwd": 2 * bptt_steps}, "11")
+    rows = metrics_io.read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    if len(rows) != TERRAIN_TRAIN_UPDATES:
+        raise RuntimeError(f"metrics.jsonl has {len(rows)} rows, expected {TERRAIN_TRAIN_UPDATES}")
+    for i, (r, z) in enumerate(zip(rows, TERRAIN_Z)):
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        if bad:
+            raise RuntimeError(f"terrain update {i}: non-finite metrics {bad}")
+        if not abs(r["terrain_z_scale"] - z) <= 1e-6:
+            raise RuntimeError(f"terrain update {i}: z_scale {r['terrain_z_scale']}, expected {z}")
+        log(f"[11] update {i}: z_scale {r['terrain_z_scale']:.4f}; {r['time_rollout_s']:.2f} s "
+            f"rollout + {r['time_gae_s']:.3f} s GAE + {r['time_epochs_s']:.2f} s for "
+            f"{TRAIN_EPOCHS} epochs; {r['fps']:.0f} env-steps/s; loss {r['loss']:.5f}, gradient "
+            f"norm {r['grad_norm']:.4g}, entropy {r['entropy']:.3f}, reward/step "
+            f"{r['reward_per_step']:.4f}, episodes ended {r['ep_count']:.0f}")
+    ckpt = os.path.join(run_dir, "ckpt_final.pkl")
+    params, _, step = mio.load_checkpoint(ckpt, DEVICE)
+    if step != TERRAIN_TRAIN_UPDATES or not all(
+            torch.isfinite(p).all() for p in params.leaves()):
+        raise RuntimeError(f"{ckpt}: update {step}, or non-finite parameters")
+    res = cli_test.main(["--model", ckpt, "--cfg", TERRAIN_CFG, "--eval", "--commands", "1,2,3",
+                         "--steps", "200", "--device", DEVICE])
+    if not all(np.isfinite(r["v_mean"]) for r in res["tracking"]):
+        raise RuntimeError(f"cli.test on the terrain checkpoint: {res['tracking']}")
+    log(f"[11] {TERRAIN_TRAIN_UPDATES} updates in {wall:.1f} s; cli.test --model "
+        f"{os.path.relpath(ckpt, ROOT)} on the terrain config: "
+        + ", ".join(f"cmd {r['command']:g} v {r['v_mean']:+.3f}" for r in res["tracking"]))
+    ppo_cfg = ppo.PPOConfig(n_steps=TRAIN_STEPS)
+    ts = ppo.init_train_state(env_cfg, ppo_cfg, env_cfg.seed, params, DEVICE)
+    step_ops = []   # PyTorch ops a control step of the terrain training rollout: 2 steps less 1
+    for n_steps in (1, 2):
+        with OpCounter() as oc:
+            ppo.rollout(env_cfg, ppo.PPOConfig(n_steps=n_steps), ts)
+        step_ops.append(oc.calls)
+    ops_per_step = step_ops[1] - step_ops[0]
+    mean_step_ms = float(np.mean([r["time_rollout_s"] for r in rows])) / TRAIN_STEPS * 1e3
+    log(f"[11] the terrain training rollout dispatches {ops_per_step} PyTorch ops a control step "
+        f"(flat: {FLAT_TRAIN_OPS_PER_STEP}); {mean_step_ms:.2f} ms a control step")
+    return {"run_dir": os.path.relpath(run_dir, ROOT), "wall_s": wall, "updates": rows,
+            "launches": counts, "rollout_torch_ops_per_step": ops_per_step,
+            "ms_per_rollout_step": mean_step_ms, "cli_test": res["tracking"]}
+
+
 def phase_parity(params) -> dict:
     """srb_vs_bp5 at cmd 1 on the flagship artifact against the JAX package's."""
     reset_counts()
     res = parity.srb_vs_bp5(config.test_default(), params, 1.0, device=DEVICE)
     counts = read_counts()
     steps = 200 + 50 + 1
-    check_counts(counts, {**rollout_counts(steps)}, "10")
+    check_counts(counts, {**rollout_counts(steps)}, "12")
     got = {k: res[k] for k in ("mae", "mae_stance", "mae_swing")}
     for k, want in JAX_SRB_VS_BP5.items():
-        log(f"[10] srb_vs_bp5 cmd 1: {k} {got[k]:.5f} (JAX {want:.5f}, diff {got[k] - want:+.2g})")
+        log(f"[12] srb_vs_bp5 cmd 1: {k} {got[k]:.5f} (JAX {want:.5f}, diff {got[k] - want:+.2g})")
         if not abs(got[k] - want) <= SRB_VS_BP5_ATOL:
             raise RuntimeError(f"srb_vs_bp5 {k}: {got[k]} vs JAX {want}")
     return {**got, "launches": counts}
@@ -1511,6 +1918,8 @@ def main(argv=None) -> int:
     training = phase_training()
     solve = phase_batched_solve()
     mpc = phase_mpc()
+    terrain_eval = phase_terrain_eval()
+    terrain_training = phase_terrain_training()
     parity_rec = phase_parity(params)
 
     # entry: the kernel function that `launches` counts and the record's times read; path:
@@ -1531,11 +1940,14 @@ def main(argv=None) -> int:
                           "(the cell's transpose under jax.grad; no TPU kernel)",
                           "lstm_cell_bwd_kernel", "training")}
     runs = {"serving": serving, "full_width": full, "training": training, "mpc": mpc,
+            "terrain_eval": terrain_eval, "terrain_training": terrain_training,
             "parity": parity_rec}
     extras = ("shape", "per_launch", "call_ms", "plain_call_ms", "library_call_ms", "substep_ms",
               "substep_plain_ms", "substep_bound_ms", "substep_bound_by", "substep_max_abs_err",
               "c2t_ms", "c2t_pd_path_ms", "c2t_bound_ms", "c2t_bound_by", "c2t_max_abs_err",
-              "c2t_null_bitwise",
+              "c2t_null_bitwise", "terrain_ms", "terrain_flat_ms", "terrain_plain_ms",
+              "terrain_bound_ms", "terrain_bound_by", "terrain_max_abs_err",
+              "terrain_zero_bitwise",
               "cell_shape", "cell_ms", "cell_plain_ms", "cell_bound_ms", "cell_bound_by",
               "cell_library_ms", "cell_max_abs_err", "cell_per_launch")
     kernels = []
@@ -1556,7 +1968,8 @@ def main(argv=None) -> int:
             json.dump({"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
                        "build": build, "kernels": kern, "serving": serving,
                        "full_width": full, "bptt": bptt, "training": training,
-                       "batched_solve": solve, "mpc": mpc, "parity": parity_rec}, f, indent=1,
+                       "batched_solve": solve, "mpc": mpc, "terrain_eval": terrain_eval,
+                       "terrain_training": terrain_training, "parity": parity_rec}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -11,10 +11,13 @@ environments are reset after every rollout (ppo2.py:577).
 
 Where the JAX package carries a PRNG key, :class:`TrainState` carries two
 ``torch.Generator``s on the device: one for the env, one for action noise and
-minibatch permutations. Parameters and the optimizer are updated in place.
-BPTT goes through :func:`..models.lstm.sequence`: on the card the
-hand-written forward and backward LSTM kernels, on the CPU the plain cells
-under autograd.
+minibatch permutations. On a terrain config the env state carries each env's
+map offset and height scale through the rollout and its closing reset; a
+``state_hook`` may rewrite the scale between updates (the z-scale
+curriculum), and every update logs the scale its rollout ran at. Parameters
+and the optimizer are updated in place. BPTT goes through
+:func:`..models.lstm.sequence`: on the card the hand-written forward and
+backward LSTM kernels, on the CPU the plain cells under autograd.
 """
 
 from __future__ import annotations
@@ -269,13 +272,14 @@ def _select_envs(batch: Batch, idx: torch.Tensor) -> Batch:
 def train_minibatch(params: lstm.PolicyParams, opt: torch.optim.Adam, mb: Batch,
                     ppo_cfg: PPOConfig) -> dict:
     """One optimizer step on one minibatch: loss, gradients (BPTT), the
-    global-norm clip, Adam. Returns the step's metrics as 0-d tensors."""
+    global-norm clip, Adam. Returns the step's metrics as 0-d tensors, the
+    gradient's global norm before the clip among them."""
     loss, aux = ppo_loss(params, mb, ppo_cfg)
     opt.zero_grad(set_to_none=True)
     loss.backward()
-    clip_by_global_norm_([p.grad for p in params.leaves()], ppo_cfg.max_grad_norm)
+    grad_norm = clip_by_global_norm_([p.grad for p in params.leaves()], ppo_cfg.max_grad_norm)
     opt.step()
-    return {"loss": loss.detach(), **aux}
+    return {"loss": loss.detach(), **aux, "grad_norm": grad_norm}
 
 
 def _mean_metrics(rows: list) -> dict:
@@ -288,8 +292,10 @@ def make_update_fn(env_cfg: EnvConfig, ppo_cfg: PPOConfig) -> Callable:
     Returns a function TrainState -> (TrainState, metrics dict of 0-d tensors
     and floats). Beside the JAX package's metrics it reports the mean loss of
     the first and of the last epoch (``loss_first_epoch``,
-    ``loss_last_epoch``) and the wall seconds of the update's three parts
-    (``time_rollout_s``, ``time_gae_s``, ``time_epochs_s``).
+    ``loss_last_epoch``), the wall seconds of the update's three parts
+    (``time_rollout_s``, ``time_gae_s``, ``time_epochs_s``) and, on a terrain
+    config, the mean terrain height scale of its rollout
+    (``terrain_z_scale``).
     """
     n_envs = env_cfg.num_envs
     nmb = ppo_cfg.nminibatches
@@ -298,6 +304,7 @@ def make_update_fn(env_cfg: EnvConfig, ppo_cfg: PPOConfig) -> Callable:
 
     def update(ts: TrainState):
         timings: dict = {}
+        z_scale = ts.env_state.terrain.z_scale.mean() if env_cfg.terrain else None
         ts, batch, ep = rollout(env_cfg, ppo_cfg, ts, timings)
         dev = batch.obs.device
         t0 = _clock(dev)
@@ -331,6 +338,8 @@ def make_update_fn(env_cfg: EnvConfig, ppo_cfg: PPOConfig) -> Callable:
             metrics["ep_len_mean"] = ep.len_sum / count
             metrics["ep_count"] = ep.count
             metrics["reward_per_step"] = torch.mean(batch.rewards)
+        if z_scale is not None:
+            metrics["terrain_z_scale"] = z_scale
         metrics["time_rollout_s"] = timings["rollout_s"]
         metrics["time_gae_s"] = timings["gae_s"]
         metrics["time_epochs_s"] = _clock(dev) - t0

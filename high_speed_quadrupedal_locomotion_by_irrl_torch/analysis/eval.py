@@ -5,7 +5,9 @@ Port of the rollout and velocity-tracking part of ``analysis/eval.py``
 closed loop at fixed commands, one env per command, all envs in one batch;
 :func:`tracking_eval` turns it into velocity-tracking statistics per command.
 Each env of a batch computes exactly what a rollout of its command alone
-computes.
+computes. On a terrain config every env of a rollout starts on the same
+stretch of the heightmap, as the JAX package's rollouts of one key do,
+unless the caller gives each env its map offset.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch.config import EnvConfig
 from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import blackpanther as bp
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm
+from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import terrain as tr
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils.rotation import quat_to_matrix
 
 
@@ -45,20 +48,25 @@ def _fixed_command_cfg(cfg: EnvConfig) -> EnvConfig:
 
 def policy_rollout(cfg: EnvConfig, params: lstm.PolicyParams, command,
                    gen: torch.Generator, n_steps: int = 750, delay_steps: int = 0,
-                   device=None) -> RolloutLog:
+                   device=None, terrain_offset=None) -> RolloutLog:
     """Closed-loop rollout of the LSTM controller at fixed commands.
 
     command: (3,) for one env or (B, 3) for B envs stepped as one batch.
     ``gen`` must live on ``device`` (default ``cuda``). delay_steps > 0
     inserts an observation FIFO of that many control steps (the DelayTool
-    latency experiment, run_bp_v5.py:360-365)."""
+    latency experiment, run_bp_v5.py:360-365). On a terrain config all envs
+    share one map offset drawn from ``gen``, or ``terrain_offset`` (B, 2)
+    gives each env its own."""
     device = dev_mod.resolve(device)
     cmd = dev_mod.tensor(command, device)
     single = cmd.dim() == 1
     cmd = cmd.reshape(-1, 3)
     B = cmd.shape[0]
+    if cfg.terrain and terrain_offset is None:
+        terrain_offset = tr.sampled_fractal(gen, 1, cfg.terrain_z_scale, device).offset.expand(B, 2)
 
-    state = bp.env_init(cfg, B, gen, device).replace(command=cmd, command_filtered=cmd)
+    state = bp.env_init(cfg, B, gen, device, terrain_offset).replace(command=cmd,
+                                                                     command_filtered=cmd)
     obs = bp.observe(cfg, state)
     s_size = lstm.state_size([w.wh.shape[0] for w in params.pi_lstm])
     lstm_state = torch.zeros((B, s_size), device=device)
@@ -98,11 +106,20 @@ def tracking_eval(cfg: EnvConfig, params, commands, gen: torch.Generator,
                   n_steps: int = 2000, skip=None, device=None):
     """Velocity-tracking error stats per command (run_bp_v5.py:738-818).
 
-    All commands roll as one batch. Steady-state stats use the trailing 40%
-    of the rollout unless ``skip`` (in control steps) is given. Each row also
-    counts the env's falls (terminations) over the whole rollout."""
+    All commands roll as one batch (on terrain, from one map offset).
+    Steady-state stats use the trailing 40% of the rollout unless ``skip`` (in
+    control steps) is given. Each row also counts the env's falls
+    (terminations) over the whole rollout."""
     cmds = np.array([[float(vx), 0.0, 0.0] for vx in commands])
     log = policy_rollout(_fixed_command_cfg(cfg), params, cmds, gen, n_steps, device=device)
+    return tracking_rows(cfg, log, commands, skip)
+
+
+def tracking_rows(cfg: EnvConfig, log: RolloutLog, commands, skip=None):
+    """:func:`tracking_eval`'s rows from the log of a batched rollout at the
+    forward speeds ``commands``, one an env."""
+    n_steps = log.gc.shape[0]
+    cmds = np.array([[float(vx), 0.0, 0.0] for vx in commands])
     vb = body_velocity(log)[skip if skip is not None else int(n_steps * 0.6):]  # (T', B, 3)
     falls = log.done.sum(dim=0).cpu().numpy()
     sign = -1.0 if cfg.wildcat else 1.0

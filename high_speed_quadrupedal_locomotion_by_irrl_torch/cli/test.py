@@ -3,10 +3,17 @@
   python -m high_speed_quadrupedal_locomotion_by_irrl_torch.cli.test \
       --model artifacts/irrl_tpu_relaxed_4e8 --eval --commands 1,2,3,4,5 --steps 2000
 
+  python -m high_speed_quadrupedal_locomotion_by_irrl_torch.cli.test \
+      --cfg high_speed_quadrupedal_locomotion_by_irrl_torch/configs/bp5_relax_terrain.yaml \
+      --model artifacts/irrl_tpu_terrain_relaxed_r5 --eval --commands 1,2,3 --steps 1500
+
 Port of the ``--eval`` mode of the JAX package's ``cli/test.py``: velocity
-tracking of a bp5 CSV controller, all commands rolled as one batch on the
-card (``--device cuda``, the default) or on the CPU (``--device cpu``).
-Prints one ``cmd ... -> v ...`` line per command.
+tracking of a controller (a bp5 CSV directory, or a ``ckpt_*.pkl`` that the
+port's ``cli.train`` wrote), all commands rolled as one batch on the card
+(``--device cuda``, the default) or on the CPU (``--device cpu``). On a
+terrain config every command starts on the same stretch of the heightmap,
+drawn from the config's seed. Prints one ``cmd ... -> v ...`` line per
+command.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.models import io as mio
 
 def parse_args(argv):
     p = argparse.ArgumentParser(description="IRRL evaluation (PyTorch port)")
-    p.add_argument("--model", type=str, required=True, help="bp5 CSV directory")
+    p.add_argument("--model", type=str, required=True,
+                   help="bp5 CSV directory or checkpoint .pkl of this port")
     p.add_argument("--cfg", type=str, default=None)
     p.add_argument("--commands", type=str, default="1,2,3,4,5")
     p.add_argument("--steps", type=int, default=750)
@@ -51,10 +59,10 @@ def main(argv=None):
               f"{cfg.contact_restitution}, {cfg.contact_res_threshold}). "
               "For reference test-path parity pass "
               "--material 0.8,0.2,0.01 (run_bp_v5.py:317)")
-    if not os.path.isdir(args.model):
-        raise SystemExit(f"--model must be a bp5 CSV directory: {args.model!r} "
-                         "(checkpoints are not in the PyTorch port yet)")
-    params = mio.load_bp5_csv(args.model, device=device)
+    if os.path.isdir(args.model):
+        params = mio.load_bp5_csv(args.model, device=device)
+    else:
+        params, _, _ = mio.load_checkpoint(args.model, device)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     results = {}
     if args.eval:

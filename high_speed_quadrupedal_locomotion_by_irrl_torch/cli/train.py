@@ -14,6 +14,11 @@ ppo2.py:452-476) and come with a bp5-format CSV export for the
 dependency-free deployment path; ``--load`` takes either. The JAX package's
 ``.pkl`` checkpoints are not read: hand such a controller over as its CSV
 directory.
+
+  rough terrain: ... --cfg .../configs/bp5_relax_terrain.yaml \
+                     --load artifacts/irrl_tpu_terrain_relaxed --num-envs 1024 \
+                     --lr 1e-4 --lr-final 2e-5 --entropy-floor 5.2 \
+                     --terrain-z-curriculum 0.05,0.1
 """
 
 from __future__ import annotations
@@ -37,9 +42,6 @@ _NOT_PORTED = {
     "no_lanes": ("--no-lanes", "the per-env step path (ROADMAP.md, Queue 1: per-env step "
                                "paths and physics variants)"),
     "distributed": ("--distributed", "multi-GPU training (ROADMAP.md, Queue 1: multi-GPU)"),
-    "terrain_z_curriculum": ("--terrain-z-curriculum",
-                             "terrain (ROADMAP.md, Queue 1: per-env step paths and physics "
-                             "variants)"),
 }
 
 
@@ -59,7 +61,8 @@ def parse_args(argv):
                         "from (interrupted-run continuation; --max-iter then "
                         "counts the REMAINING env steps)")
     p.add_argument("--terrain-z-curriculum", type=str, default=None, metavar="LO,HI",
-                   help="not in the port yet (raises)")
+                   help="linearly ramp the terrain height scale z_scale from LO to HI "
+                        "over the run, set before each update (terrain configs only)")
     p.add_argument("--entropy-floor", type=float, default=None,
                    help="minimum policy entropy in nats (logstd projected "
                         "up after each update). Both terrain relaxation "
@@ -93,8 +96,18 @@ def main(argv=None):
         if getattr(args, dest):
             raise NotImplementedError(f"{flag} is not in the PyTorch port yet: it comes with "
                                       f"{what}")
-    device = dev_mod.resolve(args.device)
     env_cfg = cfg_mod.from_yaml(args.cfg) if args.cfg else cfg_mod.train_default()
+    state_hook = None
+    if args.terrain_z_curriculum:
+        if not env_cfg.terrain:
+            raise SystemExit("--terrain-z-curriculum needs a terrain config (Terrain: true)")
+        lo, hi = (float(x) for x in args.terrain_z_curriculum.split(","))
+
+        def state_hook(ts: ppo.TrainState, frac: float) -> ppo.TrainState:
+            terr = ts.env_state.terrain
+            terr = terr._replace(z_scale=torch.full_like(terr.z_scale, lo + (hi - lo) * frac))
+            return ts.replace(env_state=ts.env_state.replace(terrain=terr))
+    device = dev_mod.resolve(args.device)
     if args.seed is not None:
         env_cfg = env_cfg.replace(seed=args.seed)
     if args.num_envs is not None:
@@ -123,15 +136,18 @@ def main(argv=None):
     print(f"run dir: {run_dir}")
 
     def save(ts: ppo.TrainState, tag):
+        terr = ts.env_state.terrain
         mio.save_checkpoint(os.path.join(run_dir, f"ckpt_{tag}.pkl"), ts.params, ts.opt_state,
-                            ts.update_idx)
+                            ts.update_idx,
+                            terrain_z_scale=None if terr is None else float(terr.z_scale.mean()))
         mio.save_bp5_csv(ts.params, os.path.join(run_dir, f"csv_{tag}"))
 
     with JsonlLogger(os.path.join(run_dir, "metrics.jsonl")) as mlog:
         ts = ppo.learn(env_cfg, ppo_cfg, args.max_iter, env_cfg.seed, params,
                        eval_every_n=args.eval_every,
                        callback=lambda ts, metrics: save(ts, ts.update_idx),
-                       metrics_hook=mlog.write, opt_state=opt_state, device=device)
+                       metrics_hook=mlog.write, opt_state=opt_state, state_hook=state_hook,
+                       device=device)
     save(ts, "final")
     return run_dir
 

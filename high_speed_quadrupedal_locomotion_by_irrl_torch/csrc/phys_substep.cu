@@ -46,6 +46,18 @@
 //   are two nullable pointers read once a lane: a null one reads as 0 and 1,
 //   which x 1 and + 0 leave exact, so the PD path is the same instruction
 //   stream whether or not they are given.
+// * Terrain (phys_control_step_kernel only; phys_substep_kernel ports the
+//   flat Pallas kernel). A sampled heightmap shared by all envs, (ny, nx)
+//   float32 (10 MB at the reference's 5000 x 500, so it stays in the 50 MB
+//   L2), and per env a map offset, a cell size and a height scale. Each lane
+//   looks the ground up under its toe and its two base corners, three
+//   bilinear lookups a substep, in the JAX package's order of operations
+//   (phys/terrain._sampled_height) with rounded intrinsics, so that no
+//   contraction moves a point across a cell edge; the contact normal stays
+//   vertical (phys_lanes._contact_point). The grid is read through the
+//   read-only path; the pointers travel in one struct by value (kernel
+//   parameter space, no registers until used). A null grid is flat ground:
+//   the height reads 0 and pos - 0 keeps the flat path's bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -102,6 +114,18 @@ struct LaneState {
   float gb[7];   // base position, quaternion wxyz
   float vb[6];   // base linear, angular velocity (world)
   float q[3], qd[3];  // own leg's joints
+};
+
+// The heightmap and the per-env terrain rows (offset (2, B), cell and height
+// scale (B,)); grid == nullptr is flat ground. gx_max / gy_max are the
+// clip limits nx - 1.001 and ny - 1.001, rounded to float on the host.
+struct Terrain {
+  const float* grid;
+  const float* offset;
+  const float* cell;
+  const float* z_scale;
+  int nx, ny;
+  float gx_max, gy_max;
 };
 
 struct LaneDiag {
@@ -167,13 +191,37 @@ __device__ __forceinline__ void fk_link(const float* Rp, const float* pp, const 
   }
 }
 
-// Penalty contact against flat ground with a vertical normal
-// (phys_lanes._contact_point).
+// Ground height under (x, y) for env e: clip, floor, bilinear weights and the
+// scale in the order of phys/terrain._bilinear, each operation rounded on its
+// own; 0 on flat ground.
+__device__ __forceinline__ float ground_height(const Terrain& t, size_t sB, int e, float x,
+                                               float y) {
+  if (t.grid == nullptr) return 0.0f;
+  const float cell = __ldg(t.cell + e);
+  const float gx = fminf(fmaxf(__fdiv_rn(__fadd_rn(x, __ldg(t.offset + e)), cell), 0.0f),
+                         t.gx_max);
+  const float gy = fminf(fmaxf(__fdiv_rn(__fadd_rn(y, __ldg(t.offset + sB + e)), cell), 0.0f),
+                         t.gy_max);
+  const float ixf = floorf(gx), iyf = floorf(gy);
+  const float fx = __fsub_rn(gx, ixf), fy = __fsub_rn(gy, iyf);
+  const float gx1 = __fsub_rn(1.0f, fx), gy1 = __fsub_rn(1.0f, fy);
+  const float* row = t.grid + (size_t)iyf * t.nx + (size_t)ixf;
+  const float h00 = __ldg(row), h10 = __ldg(row + 1);
+  const float h01 = __ldg(row + t.nx), h11 = __ldg(row + t.nx + 1);
+  float s = __fmul_rn(__fmul_rn(h00, gx1), gy1);
+  s = __fadd_rn(s, __fmul_rn(__fmul_rn(h10, fx), gy1));
+  s = __fadd_rn(s, __fmul_rn(__fmul_rn(h01, gx1), fy));
+  s = __fadd_rn(s, __fmul_rn(__fmul_rn(h11, fx), fy));
+  return __fmul_rn(__ldg(t.z_scale + e), s);
+}
+
+// Penalty contact against the ground at height `ground` under the point, with
+// a vertical normal (phys_lanes._contact_point).
 __device__ __forceinline__ float contact_point(const float* pos, const float* vel,
-                                               float radius, float kn, float dn,
-                                               float mu, float slip_vel,
+                                               float radius, float ground, float kn,
+                                               float dn, float mu, float slip_vel,
                                                float impulse_scale, float* f) {
-  float pen = fmaxf(radius - pos[2], 0.0f);
+  float pen = fmaxf(radius - __fsub_rn(pos[2], ground), 0.0f);
   float active = pen > 0.0f ? 1.0f : 0.0f;
   float fn = fmaxf(kn * pen - dn * vel[2], 0.0f) * active;
   float vt_norm = sqrtf(vel[0] * vel[0] + vel[1] * vel[1] + slip_vel * slip_vel * 1e-4f);
@@ -268,8 +316,9 @@ __device__ __forceinline__ void project_base(const float* F, const float* p0, fl
 // One substep of env e as seen by the lane of leg `leg`: updates s, fills d.
 __device__ __forceinline__ void substep_lane(const float* __restrict__ prm, size_t sB, int e,
                                              int leg, LaneState& s, const float* tau,
-                                             const float* bw, float slip_vel,
-                                             float impulse_scale, float dt, LaneDiag& d) {
+                                             const float* bw, const Terrain& terr,
+                                             float slip_vel, float impulse_scale, float dt,
+                                             LaneDiag& d) {
 #define PRM(r) __ldg(prm + (size_t)(r) * sB + e)
   const int j0 = 3 * leg;  // the leg's first joint; its bodies are j0 + 1 ...
   const float* p0 = s.gb;
@@ -334,7 +383,8 @@ __device__ __forceinline__ void substep_lane(const float* __restrict__ prm, size
     cross3(&v[2][0], toe, wxp);
 #pragma unroll
     for (int i = 0; i < 3; ++i) d.toe_vel[i] = v[2][3 + i] + wxp[i];
-    d.fn = contact_point(toe, d.toe_vel, kToeRadius, kn, dn, mu, slip_vel, impulse_scale, ftoe);
+    d.fn = contact_point(toe, d.toe_vel, kToeRadius, ground_height(terr, sB, e, toe[0], toe[1]),
+                         kn, dn, mu, slip_vel, impulse_scale, ftoe);
     cross3(toe, ftoe, toe_wrench);
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -357,7 +407,8 @@ __device__ __forceinline__ void substep_lane(const float* __restrict__ prm, size
       cross3(v0, cp, wxp);
 #pragma unroll
       for (int i = 0; i < 3; ++i) cv[i] = v0[3 + i] + wxp[i];
-      contact_point(cp, cv, 0.0f, kn * 0.25f, dn * 0.25f, mu, slip_vel, impulse_scale, f);
+      contact_point(cp, cv, 0.0f, ground_height(terr, sB, e, cp[0], cp[1]), kn * 0.25f,
+                    dn * 0.25f, mu, slip_vel, impulse_scale, f);
       cross3(cp, f, nxf);
 #pragma unroll
       for (int i = 0; i < 3; ++i) {
@@ -670,13 +721,14 @@ phys_substep_kernel(const float* __restrict__ prm, const float* __restrict__ gc,
   for (int k = 0; k < 3; ++k) t[k] = tau[(3 * l.leg + k) * sB + l.e];
 #pragma unroll
   for (int i = 0; i < 6; ++i) w[i] = bw[i * sB + l.e];
-  substep_lane(prm, sB, l.e, l.leg, s, t, w, slip_vel, impulse_scale, dt, d);
+  const Terrain flat = {};
+  substep_lane(prm, sB, l.e, l.leg, s, t, w, flat, slip_vel, impulse_scale, dt, d);
   store_state(out, sB, l, s, d);
 }
 
 // n_substeps x {PD torque from the fresh state -> substep}; writes the final
 // state, the last substep's toe rows and the last substep's torque. tau_ff
-// and pd_scale may be null (0 and 1).
+// and pd_scale may be null (0 and 1); terr.grid may be null (flat ground).
 __global__ void __launch_bounds__(kThreads)
 phys_control_step_kernel(const float* __restrict__ prm, const float* __restrict__ gc,
                          const float* __restrict__ gv, const float* __restrict__ ptarget,
@@ -684,7 +736,7 @@ phys_control_step_kernel(const float* __restrict__ prm, const float* __restrict_
                          const float* __restrict__ bw, const float* __restrict__ tau_ff,
                          const float* __restrict__ pd_scale, float* __restrict__ out, int B,
                          int n_substeps, float slip_vel, float impulse_scale, float dt,
-                         PdConsts pd) {
+                         PdConsts pd, Terrain terr) {
   const Lane l = lane_of_thread(B);
   const size_t sB = (size_t)B;
   LaneState s;
@@ -708,7 +760,7 @@ phys_control_step_kernel(const float* __restrict__ prm, const float* __restrict_
     for (int k = 0; k < 3; ++k) {
       t[k] = pd_torque(pd, k, pt[k], tnl[k], s.q[k], s.qd[k], ps[k], ff[k]);
     }
-    substep_lane(prm, sB, l.e, l.leg, s, t, w, slip_vel, impulse_scale, dt, d);
+    substep_lane(prm, sB, l.e, l.leg, s, t, w, terr, slip_vel, impulse_scale, dt, d);
   }
   store_state(out, sB, l, s, d);
   if (l.live) {
@@ -739,14 +791,25 @@ extern "C" int phys_substep_launch(const float* prm, const float* gc, const floa
 // motor max torque, critical speed, max speed and the envelope's slope, then
 // the motor model's kt, resistance, torque limit, battery voltage, damping
 // and friction. tau_ff and pd_scale: (12, B) rows like ptarget, or null.
+// grid: the (ny, nx) heightmap, or null for flat ground; with it, terr_off
+// (2, B), terr_cell and terr_z (B,).
 extern "C" int phys_control_step_launch(const float* prm, const float* gc, const float* gv,
                                         const float* ptarget, const float* torque_norm_last,
                                         const float* bw, const float* tau_ff,
                                         const float* pd_scale, float* out, int B, int n_substeps,
                                         float slip_vel, float impulse_scale, float dt,
                                         const float* pd_host, int motor_dynamics,
-                                        cudaStream_t stream) {
+                                        const float* grid, int nx, int ny,
+                                        const float* terr_off, const float* terr_cell,
+                                        const float* terr_z, cudaStream_t stream) {
   if (n_substeps < 1) return (int)cudaErrorInvalidValue;
+  if (grid != nullptr && (nx < 2 || ny < 2 || terr_off == nullptr || terr_cell == nullptr ||
+                          terr_z == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Terrain terr = {};
+  if (grid != nullptr) {
+    terr = {grid, terr_off, terr_cell, terr_z, nx, ny, (float)(nx - 1.001), (float)(ny - 1.001)};
+  }
   PdConsts pd;
   for (int k = 0; k < 3; ++k) {
     pd.kp[k] = pd_host[k];
@@ -768,7 +831,7 @@ extern "C" int phys_control_step_launch(const float* prm, const float* gc, const
   if (B > 0) {
     phys_control_step_kernel<<<blocks_for(B), kThreads, 0, stream>>>(
         prm, gc, gv, ptarget, torque_norm_last, bw, tau_ff, pd_scale, out, B, n_substeps,
-        slip_vel, impulse_scale, dt, pd);
+        slip_vel, impulse_scale, dt, pd, terr);
   }
   return (int)cudaGetLastError();
 }

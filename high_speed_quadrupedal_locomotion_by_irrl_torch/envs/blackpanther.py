@@ -8,7 +8,10 @@ substeps a control step, fused into one call of the hand-written CUDA kernel
 8-term DeepMimic reward, termination, online references and the branchless
 auto-reset. Every field of :class:`EnvState` has a leading env axis; a single
 env is a batch of one. Randomness comes from a ``torch.Generator`` that lives
-on the state's device.
+on the state's device. On a terrain config (``cfg.terrain``) every env stands
+on its own stretch of the shared sampled heightmap (:mod:`..phys.terrain`):
+it spawns above the ground under it, and the physics kernel looks the
+ground up under every toe and base corner.
 
 Reference quirks kept as in the JAX package (the shipped policies were
 trained against them): the torque smoothing mixes 1% of the *normalized*
@@ -16,9 +19,9 @@ torque of the previous control step; the "stop" command bucket is a no-op;
 Vx_min stays 0; reward mimic targets lag the state by one control step.
 
 Not in the port yet, and raising ``NotImplementedError`` rather than running
-something else: the meteorite attacks (``cfg.crucial``), hard contact
-(``cfg.hard_contact``) and terrain (``cfg.terrain``), which need the per-env
-step and a ground lookup in the physics kernel, and RefTraj reference tables.
+something else: the meteorite attacks (``cfg.crucial``) and hard contact
+(``cfg.hard_contact``), which need the per-env step, the analytic fractal
+terrain (``cfg.terrain_sampled=False``), and RefTraj reference tables.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.config import EnvConfig
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import pd_torque, phys_cuda
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as lanes
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
+from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import terrain as tr
 from high_speed_quadrupedal_locomotion_by_irrl_torch.robot import gait
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils.rotation import quat_to_matrix
 
@@ -51,6 +55,7 @@ class EnvState:
     gc: torch.Tensor                 # (B, 19)
     gv: torch.Tensor                 # (B, 18)
     params: mdl.RobotParams          # per-env dynamics (fixed across auto-resets)
+    terrain: tr.SampledTerrain | None  # per-env map offsets (cfg.terrain), else None
     # control pipeline
     ptarget_last: torch.Tensor       # (B, 12)
     torque_norm_last: torch.Tensor   # (B, 12) normalized torque (see module notes)
@@ -92,12 +97,15 @@ class StepOut(NamedTuple):
 
 
 def _check_supported(cfg: EnvConfig) -> None:
-    for flag, what in (("crucial", "meteorite attacks"), ("hard_contact", "hard contact"),
-                       ("terrain", "terrain")):
+    for flag, what in (("crucial", "meteorite attacks"), ("hard_contact", "hard contact")):
         if getattr(cfg, flag):
             raise NotImplementedError(
                 f"cfg.{flag} ({what}) is not in the PyTorch port yet: it comes with the "
                 "per-env step and physics-variant slice (ROADMAP.md)")
+    if cfg.terrain and not cfg.terrain_sampled:
+        raise NotImplementedError(
+            "cfg.terrain_sampled=False (the analytic fractal terrain) is not in the PyTorch "
+            "port yet: only the sampled heightmap is (ROADMAP.md, Queue 1 item 3)")
 
 
 # --- constants per (config, device) --------------------------------------------
@@ -347,19 +355,31 @@ def _force_attack(cfg: EnvConfig, gen: torch.Generator, B: int, device) -> torch
 
 # --- reset --------------------------------------------------------------------
 
-def env_init(cfg: EnvConfig, batch: int, gen: torch.Generator, device=None) -> EnvState:
-    """Construction-time state of ``batch`` envs: domain randomization and the
-    first reset (VectorizedEnvironment.hpp:172-182). ``gen`` must live on
-    ``device`` (default ``cuda``)."""
+def env_init(cfg: EnvConfig, batch: int, gen: torch.Generator, device=None,
+             terrain_offset: torch.Tensor | None = None) -> EnvState:
+    """Construction-time state of ``batch`` envs: domain randomization, the
+    terrain and the first reset (VectorizedEnvironment.hpp:172-182). ``gen``
+    must live on ``device`` (default ``cuda``). On a terrain config each env
+    draws its map offset from ``gen``, unless ``terrain_offset`` (batch, 2)
+    gives them."""
     _check_supported(cfg)
     device = dev_mod.resolve(device)
     c = _consts(cfg, device)
     params = (mdl.randomize(gen, cfg, batch, device) if cfg.stochastic_dynamics
               else mdl.nominal_params(cfg, device).expand(batch))
+    if not cfg.terrain:
+        if terrain_offset is not None:
+            raise ValueError("terrain_offset given for a config without terrain")
+        terrain = None
+    elif terrain_offset is None:
+        terrain = tr.sampled_fractal(gen, batch, cfg.terrain_z_scale, device)
+    else:
+        terrain = tr.at_offsets(dev_mod.tensor(terrain_offset, device).reshape(batch, 2),
+                                cfg.terrain_z_scale)
     z = lambda *shape: torch.zeros((batch,) + shape, device=device)  # noqa: E731
     zi = lambda: torch.zeros(batch, dtype=torch.int32, device=device)  # noqa: E731
     blank = EnvState(
-        gc=c.stand_gc.expand(batch, 19).clone(), gv=z(18), params=params,
+        gc=c.stand_gc.expand(batch, 19).clone(), gv=z(18), params=params, terrain=terrain,
         ptarget_last=z(12), torque_norm_last=z(12), torque_applied=z(12), base_wrench=z(6),
         command=z(3), command_filtered=z(3),
         joint_ref=c.init_joint_ref.expand(batch, 12).clone(),
@@ -376,8 +396,9 @@ def reset(cfg: EnvConfig, state: EnvState, gen: torch.Generator) -> EnvState:
     """reset() (Environment.hpp:547-635) of every env of the batch: random
     phase start, command resample, joint pose/vel perturbed +-30% around the
     gait reference, base velocity seeded from the command +-20%, random xy
-    +-5 m; manual mode starts from the stand pose at rest. Dynamics params,
-    the raw command and the last position target persist."""
+    +-5 m; manual mode starts from the stand pose at rest. On terrain the base
+    spawns at stand height above the ground under it. Dynamics params,
+    terrain, the raw command and the last position target persist."""
     B, dev = state.gc.shape[0], state.gc.device
     c = _consts(cfg, dev)
     zeros = lambda *shape: torch.zeros((B,) + shape, device=dev)  # noqa: E731
@@ -404,6 +425,9 @@ def reset(cfg: EnvConfig, state: EnvState, gen: torch.Generator) -> EnvState:
         gc = torch.cat([xy, stand[:, 2:7], q0], dim=-1)
         zero = zeros()
         gv = torch.cat([torch.stack([vx, vy, zero, zero, zero, wz], dim=-1), qd0], dim=-1)
+    if cfg.terrain:  # spawn stand-height above the local ground surface
+        z0 = stand[:, 2] + tr.height(state.terrain, gc[:, 0], gc[:, 1])
+        gc = torch.cat([gc[:, :2], z0[:, None], gc[:, 3:]], dim=-1)
 
     obs, _, _, _ = _raw_observation(cfg, gen, gc, gv, command_filtered, t0)
 
@@ -490,7 +514,9 @@ def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
 
     ``tau_ff``/``pd_scale`` ((B, 12) each, optional) are the Convert2Torque
     actuation of the JAX ``step``: a joint-torque feedforward and a scale on
-    the PD feedback, held over the control step's substeps."""
+    the PD feedback, held over the control step's substeps. On a terrain
+    config the call carries the heightmap and the envs' terrain rows (JAX
+    ``step_batch``'s ground_fn: vertical contact normal)."""
     _check_supported(cfg)
     pre = _pre_substeps(cfg, states, actions, gen)
     P = lanes.params_to_lanes(states.params)
@@ -500,7 +526,7 @@ def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
         pre.ptarget.T.contiguous(), states.torque_norm_last.T.contiguous(),
         pre.base_wrench.T.contiguous(), cfg.substeps, cfg.contact_slip_vel,
         cfg.contact_impulse_mass / cfg.simulation_dt, cfg.simulation_dt,
-        rows(tau_ff), rows(pd_scale))
+        rows(tau_ff), rows(pd_scale), tr.rows(states.terrain) if cfg.terrain else None)
     diag = _Diag(toe_pos=toe.permute(2, 0, 1), toe_vel=toe_vel.permute(2, 0, 1),
                  toe_force_norm=fnorm.T, toe_normal_force=fnormal.T)
     return _post_substeps(cfg, states, gen, gcT.T.contiguous(), gvT.T.contiguous(),
@@ -568,10 +594,10 @@ def _post_substeps(cfg: EnvConfig, state: EnvState, gen: torch.Generator, gc, gv
 
 
 def _where(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
-    """Per-env select of two states (params are shared by both)."""
+    """Per-env select of two states (params and terrain are shared by both)."""
     def sel(x, y):
         m = mask.reshape(mask.shape + (1,) * (x.dim() - 1))
         return torch.where(m, x, y)
     kw = {f.name: sel(getattr(a, f.name), getattr(b, f.name))
-          for f in dataclasses.fields(EnvState) if f.name != "params"}
+          for f in dataclasses.fields(EnvState) if f.name not in ("params", "terrain")}
     return b.replace(**kw)

@@ -10,7 +10,8 @@ Port of ``models/io.py``. Two serialization surfaces:
    package exchange controllers, in both directions.
 2. **checkpoints**: a pickle of plain dicts of numpy arrays: the parameters by
    leaf name (``PolicyParams.named_leaves``), Adam's moments by the same
-   names, its step count and learning rate, and the update counter. The JAX
+   names, its step count and learning rate, the update counter and, for a
+   run on terrain, the terrain height scale it had reached. The JAX
    package's ``.pkl`` checkpoints pickle its own classes, so unpickling them
    imports JAX: the port does not read them; export such a controller as a
    CSV directory instead.
@@ -161,11 +162,13 @@ class _NumpyOnlyUnpickler(pickle.Unpickler):
 
 
 def save_checkpoint(path: str, params: PolicyParams, opt: Optional[torch.optim.Adam],
-                    step: Optional[int] = None) -> None:
+                    step: Optional[int] = None,
+                    terrain_z_scale: Optional[float] = None) -> None:
     """Full-state checkpoint: plain dicts of numpy arrays, pickled."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     blob = {"step": step, "params": policy_params_to_numpy(params),
-            "adam": None if opt is None else adam_state_to_numpy(opt, params)}
+            "adam": None if opt is None else adam_state_to_numpy(opt, params),
+            "terrain_z_scale": terrain_z_scale}
     with open(path, "wb") as f:
         pickle.dump(blob, f)
 

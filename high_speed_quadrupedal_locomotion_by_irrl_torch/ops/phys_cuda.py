@@ -11,8 +11,11 @@ body:
   each after the PD torque of :mod:`..ops.pd_torque` from the fresh state, in
   one launch with the state in registers. Its optional Convert2Torque inputs
   (a torque feedforward and a PD scale, (12, B) each) are held over the
-  substeps. Its plain version is :func:`control_step_plain`, the Python loop
-  over the two plain functions.
+  substeps. Its optional terrain (:class:`..phys.terrain.TerrainRows`: the
+  shared heightmap and per-env offset, cell and height scale) puts the
+  ground under each toe and base corner at its bilinear height. Its plain
+  version is :func:`control_step_plain`, the Python loop over the two plain
+  functions. :func:`substep` stays on flat ground, as the TPU kernel does.
 
 For tensors on the CPU both run their plain version; for CUDA tensors they
 launch the kernel (four lanes an env, one per leg) or raise, never falling
@@ -34,6 +37,7 @@ import torch
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import _build
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import pd_torque as pdt
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as lanes
+from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import terrain as tr
 
 P_ROWS = 13 + 39 + 117 + 36 + 3   # mass com inertia joint_origin friction kn dn
 OUT_ROWS = 19 + 18 + 12 + 12 + 4 + 4
@@ -64,7 +68,8 @@ def _fns():
     sub, step = lib.phys_substep_launch, lib.phys_control_step_launch
     sub.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_void_p]
     step.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
-                     + [ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_void_p])
+                     + [ctypes.POINTER(ctypes.c_float), ctypes.c_int]
+                     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4)
     sub.restype = step.restype = ctypes.c_int
     return sub, step
 
@@ -73,13 +78,28 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _check(name: str, x: torch.Tensor, rows: int, B: int, device) -> None:
+def _check(name: str, x: torch.Tensor, rows: int | None, B: int, device) -> None:
+    """float32, contiguous, on ``device``, of shape (rows, B), or (B,) for
+    ``rows`` None."""
     if x.device != device or x.dtype != torch.float32:
         raise ValueError(f"{name}: need float32 on {device}, got {x.dtype} on {x.device}")
-    if tuple(x.shape) != (rows, B):
-        raise ValueError(f"{name}: need shape {(rows, B)}, got {tuple(x.shape)}")
+    shape = (B,) if rows is None else (rows, B)
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name}: need shape {shape}, got {tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: need a contiguous tensor")
+
+
+def _check_terrain(terrain: tr.TerrainRows, B: int, device) -> None:
+    g = terrain.grid
+    if g.device != device or g.dtype != torch.float32 or g.dim() != 2 or not g.is_contiguous():
+        raise ValueError(f"terrain grid: need a contiguous float32 (ny, nx) tensor on {device}, "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    if min(g.shape) < 2:
+        raise ValueError(f"terrain grid: need at least 2 x 2 samples, got {tuple(g.shape)}")
+    _check("terrain offset", terrain.offset, 2, B, device)
+    _check("terrain cell", terrain.cell, None, B, device)
+    _check("terrain z_scale", terrain.z_scale, None, B, device)
 
 
 def _views(out: torch.Tensor, B: int):
@@ -119,22 +139,25 @@ def substep(P: lanes.LaneParams, gcT: torch.Tensor, gvT: torch.Tensor,
 
 def control_step_plain(P: lanes.LaneParams, pd: pdt.PDConsts, gcT, gvT, ptargetT,
                        torque_norm_lastT, base_wrenchT, n_substeps: int, slip_vel: float,
-                       impulse_scale: float, dt: float, tau_ffT=None, pd_scaleT=None):
+                       impulse_scale: float, dt: float, tau_ffT=None, pd_scaleT=None,
+                       terrain: tr.TerrainRows | None = None):
     """The plain version of :func:`control_step`: ``n_substeps`` times the
     plain PD torque from the fresh state, then the plain substep."""
     ptarget, tnl = ptargetT.T, torque_norm_lastT.T
     tau_ff = None if tau_ffT is None else tau_ffT.T
     pd_scale = None if pd_scaleT is None else pd_scaleT.T
+    ground_fn = None if terrain is None else lambda x, y: tr.height(terrain, x, y)
     for _ in range(n_substeps):
         tauT = pdt.pd_torque(pd, ptarget, tnl, gcT[7:].T, gvT[6:].T, tau_ff,
                              pd_scale).T.contiguous()
         gcT, gvT, toe, toe_vel, fnorm, fnormal = lanes.substep(
-            P, gcT, gvT, tauT, base_wrenchT, slip_vel, impulse_scale, dt)
+            P, gcT, gvT, tauT, base_wrenchT, slip_vel, impulse_scale, dt, ground_fn)
     return gcT, gvT, toe, toe_vel, fnorm, fnormal, tauT
 
 
 def _control_step_kernel(P, pd, gcT, gvT, ptargetT, torque_norm_lastT, base_wrenchT,
-                         n_substeps, slip_vel, impulse_scale, dt, tau_ffT=None, pd_scaleT=None):
+                         n_substeps, slip_vel, impulse_scale, dt, tau_ffT=None, pd_scaleT=None,
+                         terrain=None):
     global launches
     device, B = gcT.device, gcT.shape[-1]
     prm = pack_params(P)
@@ -145,7 +168,10 @@ def _control_step_kernel(P, pd, gcT, gvT, ptargetT, torque_norm_lastT, base_wren
                           ("pd_scaleT", pd_scaleT, 12)):
         if x is not None:
             _check(name, x, rows, B, device)
+    if terrain is not None:
+        _check_terrain(terrain, B, device)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    ny, nx = (0, 0) if terrain is None else terrain.grid.shape
     out = torch.empty((STEP_OUT_ROWS, B), dtype=torch.float32, device=device)
     consts = (ctypes.c_float * 22)(*pack_pd_consts(pd))
     _, fn = _fns()
@@ -154,6 +180,9 @@ def _control_step_kernel(P, pd, gcT, gvT, ptargetT, torque_norm_lastT, base_wren
                  torque_norm_lastT.data_ptr(), base_wrenchT.data_ptr(), ptr(tau_ffT),
                  ptr(pd_scaleT), out.data_ptr(), B, int(n_substeps), float(slip_vel),
                  float(impulse_scale), float(dt), consts, int(pd.motor_dynamics),
+                 *((None, 0, 0, None, None, None) if terrain is None else (
+                     terrain.grid.data_ptr(), nx, ny, terrain.offset.data_ptr(),
+                     terrain.cell.data_ptr(), terrain.z_scale.data_ptr())),
                  _stream(device))
     _build.check(err, "phys_control_step_launch")
     launches += 1
@@ -164,18 +193,20 @@ def control_step(P: lanes.LaneParams, pd: pdt.PDConsts, gcT: torch.Tensor, gvT: 
                  ptargetT: torch.Tensor, torque_norm_lastT: torch.Tensor,
                  base_wrenchT: torch.Tensor, n_substeps: int, slip_vel: float,
                  impulse_scale: float, dt: float, tau_ffT: torch.Tensor | None = None,
-                 pd_scaleT: torch.Tensor | None = None):
+                 pd_scaleT: torch.Tensor | None = None,
+                 terrain: tr.TerrainRows | None = None):
     """One control step of physics. (19,B),(18,B) state, (12,B) position
     targets and last normalized torques, (6,B) base wrench, optional (12,B)
-    torque feedforward and PD scale -> (gcT', gvT') after ``n_substeps``
-    substeps, the last substep's toe (4,3,B), toe_vel (4,3,B), force norm
-    (4,B) and normal force (4,B), and the last substep's joint torque (12,B).
-    ``None`` for a Convert2Torque input is the PD path (a feedforward of 0,
-    a scale of 1), bit for bit."""
+    torque feedforward and PD scale, optional terrain -> (gcT', gvT') after
+    ``n_substeps`` substeps, the last substep's toe (4,3,B), toe_vel (4,3,B),
+    force norm (4,B) and normal force (4,B), and the last substep's joint
+    torque (12,B). ``None`` for a Convert2Torque input is the PD path (a
+    feedforward of 0, a scale of 1), bit for bit; ``None`` for the terrain is
+    flat ground."""
     if n_substeps < 1:
         raise ValueError(f"control step: need n_substeps >= 1, got {n_substeps}")
     args = (P, pd, gcT, gvT, ptargetT, torque_norm_lastT, base_wrenchT, n_substeps, slip_vel,
-            impulse_scale, dt, tau_ffT, pd_scaleT)
+            impulse_scale, dt, tau_ffT, pd_scaleT, terrain)
     if gcT.device.type == "cpu":
         return control_step_plain(*args)
     if gcT.device.type != "cuda":

@@ -8,7 +8,8 @@ line by line. This is the plain version of the CUDA kernel in
 the kernel is held against on the card. On a GPU it issues ~20k tiny kernels
 per call and is far too slow for a rollout.
 
-Restrictions, as in the kernel: flat ground, no attack-sphere wrenches.
+Restrictions, as in the kernel: ground contact with a vertical normal (flat,
+or a height lookup ``ground_fn``), no attack-sphere wrenches.
 """
 
 from __future__ import annotations
@@ -198,10 +199,12 @@ def _dot6(a, b):
 
 
 def _contact_point(P: LaneParams, pos, vel, radius, slip_vel, impulse_scale,
-                   kn_scale=1.0, dn_scale=1.0):
-    """Penalty contact against flat ground at z=0 with a vertical normal
-    (contact.point_contact_force specialized)."""
-    pen = torch.clamp_min(radius - pos[2], 0.0)
+                   kn_scale=1.0, dn_scale=1.0, ground_h=None):
+    """Penalty contact against the ground with a vertical normal
+    (contact.point_contact_force specialized). ground_h: optional (B,)
+    terrain height under the point; None is flat ground at z = 0."""
+    z = pos[2] if ground_h is None else pos[2] - ground_h
+    pen = torch.clamp_min(radius - z, 0.0)
     active = (pen > 0.0).to(pen.dtype)
     vn = vel[2]
     fn = torch.clamp_min(P.kn * kn_scale * pen - P.dn * dn_scale * vn, 0.0) * active
@@ -225,9 +228,11 @@ class LaneDiag(NamedTuple):
 
 def substep_lanes(P: LaneParams, g: list, v: list, tau: list,
                   base_wrench: list, slip_vel: float, impulse_scale: float,
-                  dt: float):
+                  dt: float, ground_fn=None):
     """One semi-implicit Euler substep; g: 19 coords, v: 18 vels,
     tau: 12 joint torques, base_wrench: 6 ([f_world; n_world]).
+    ground_fn: optional (x, y) -> terrain height over (B,) lane tensors, read
+    under each toe and base corner (vertical normal); None is flat ground.
     Returns (g', v', LaneDiag)."""
     kin = fk_lanes(P, g)
     S = _s_columns(kin, kin.p[0])
@@ -250,7 +255,9 @@ def substep_lanes(P: LaneParams, g: list, v: list, tau: list,
         tp = kin.toe[leg]
         w, v0 = v_body[b][:3], v_body[b][3:]
         tv = [v0[i] + _cross(w, tp)[i] for i in range(3)]
-        f, fn = _contact_point(P, tp, tv, mdl.TOE_RADIUS, slip_vel, impulse_scale)
+        gh = None if ground_fn is None else ground_fn(tp[0], tp[1])
+        f, fn = _contact_point(P, tp, tv, mdl.TOE_RADIUS, slip_vel, impulse_scale,
+                               ground_h=gh)
         nxf = _cross(tp, f)
         for i in range(3):
             f_ext[b][i] = f_ext[b][i] + nxf[i]
@@ -265,8 +272,9 @@ def substep_lanes(P: LaneParams, g: list, v: list, tau: list,
         local = [sx * _BOX[0], sy * _BOX[1], sz * _BOX[2]]
         cp = [p0[i] + _dot3(R0[i], local) for i in range(3)]
         cv = [v00[i] + _cross(w0, cp)[i] for i in range(3)]
+        gh = None if ground_fn is None else ground_fn(cp[0], cp[1])
         f, _ = _contact_point(P, cp, cv, 0.0, slip_vel, impulse_scale,
-                              kn_scale=0.25, dn_scale=0.25)
+                              kn_scale=0.25, dn_scale=0.25, ground_h=gh)
         nxf = _cross(cp, f)
         for i in range(3):
             f_ext[0][i] = f_ext[0][i] + nxf[i]
@@ -413,14 +421,15 @@ def _solve_spd_lists(M, b):
 
 def substep(P: LaneParams, gcT: torch.Tensor, gvT: torch.Tensor,
             tauT: torch.Tensor, base_wrenchT: torch.Tensor,
-            slip_vel: float, impulse_scale: float, dt: float):
+            slip_vel: float, impulse_scale: float, dt: float, ground_fn=None):
     """(19,B),(18,B),(12,B),(6,B) -> (gcT' (19,B), gvT' (18,B), toe (4,3,B),
-    toe_vel (4,3,B), force norm (4,B), normal force (4,B))."""
+    toe_vel (4,3,B), force norm (4,B), normal force (4,B)); ``ground_fn`` as
+    in :func:`substep_lanes`."""
     g = [gcT[i] for i in range(19)]
     v = [gvT[i] for i in range(18)]
     tau = [tauT[i] for i in range(12)]
     bw = [base_wrenchT[i] for i in range(6)]
-    g2, v2, diag = substep_lanes(P, g, v, tau, bw, slip_vel, impulse_scale, dt)
+    g2, v2, diag = substep_lanes(P, g, v, tau, bw, slip_vel, impulse_scale, dt, ground_fn)
     toe = torch.stack([torch.stack(t) for t in diag.toe])          # (4,3,B)
     toe_vel = torch.stack([torch.stack(t) for t in diag.toe_vel])  # (4,3,B)
     fnorm = torch.stack(diag.toe_force_norm)                       # (4,B)

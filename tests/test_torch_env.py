@@ -26,13 +26,15 @@ torch.set_num_threads(1)
 
 
 def state_from_jax(js) -> tbp.EnvState:
-    """A batched JAX EnvState as the port's (the PRNG key, terrain and the
-    attack-sphere fields have no counterpart)."""
+    """A batched JAX EnvState of a flat config as the port's (the PRNG key,
+    the flat terrain and the attack-sphere fields have no counterpart)."""
     js = jax.tree.map(np.asarray, js)
     kw = {}
     for name in tbp.EnvState.__dataclass_fields__:
         if name == "params":
             kw[name] = tmdl.robot_params_from_numpy(js.params, "cpu")
+        elif name == "terrain":
+            kw[name] = None
         else:
             kw[name] = torch.from_numpy(np.array(getattr(js, name)))
     return tbp.EnvState(**kw)
@@ -77,7 +79,7 @@ def test_env_init_matches_jax_under_test_config():
     ts = tbp.env_init(tconfig.test_default(), B, torch.Generator().manual_seed(0), "cpu")
     want = state_from_jax(js)
     for name in tbp.EnvState.__dataclass_fields__:
-        if name != "params":
+        if name not in ("params", "terrain"):
             np.testing.assert_allclose(getattr(ts, name).numpy(), getattr(want, name).numpy(),
                                        atol=1e-6, err_msg=name)
     np.testing.assert_allclose(tbp.observe(tconfig.test_default(), ts).numpy(),
@@ -230,6 +232,8 @@ def test_training_config_steps_and_resets():
 
 @pytest.mark.parametrize("flag", ["crucial", "hard_contact", "terrain"])
 def test_unported_modes_raise(flag):
-    cfg = tconfig.test_default().replace(**{flag: True})
-    with pytest.raises(NotImplementedError, match=flag):
+    # terrain runs on the sampled heightmap; the analytic fractal still raises
+    over = {"terrain": True, "terrain_sampled": False} if flag == "terrain" else {flag: True}
+    cfg = tconfig.test_default().replace(**over)
+    with pytest.raises(NotImplementedError, match="terrain_sampled" if flag == "terrain" else flag):
         tbp.env_init(cfg, 1, torch.Generator().manual_seed(0), "cpu")

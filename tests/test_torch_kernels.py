@@ -12,7 +12,10 @@ code, so only the torque's rounding differs); and loosely against its plain
 loop, since 8 substeps of stiff penalty contact amplify rounding. The
 control step's Convert2Torque inputs (torque feedforward, PD scale) are held
 against the plain loop at the SRB closed loop's impulse scale, and leaving
-them out must equal, bit for bit, a feedforward of 0 and a scale of 1.
+them out must equal, bit for bit, a feedforward of 0 and a scale of 1. The
+control step on terrain (the heightmap lookup under each toe and base corner)
+is held against its plain loop at chain (c)'s tolerances, and with a height
+scale of 0 must give the flat kernel's bits.
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import lstm_cuda, pd_torque, phys_cuda
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as lanes
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
+from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import terrain
 
 pytestmark = pytest.mark.cuda
 
@@ -187,6 +191,64 @@ def test_control_step_null_inputs_are_the_pd_path(cuda, B, motor_dynamics):
     torch.cuda.synchronize()
     for a, b in zip(omitted, given):
         assert torch.equal(a, b)
+
+
+def terrain_inputs(B, seed, device, motor_dynamics, z_scale=0.1):
+    """Control-step inputs on terrain: offsets spread over the whole map (some
+    past its edges, where the lookup clips), each base 0.30 m above the ground
+    under it."""
+    args = list(_control_inputs(B, seed, device, motor_dynamics))
+    rng = np.random.default_rng(seed + 3)
+    off = np.stack([rng.uniform(-5.0, 505.0, B), rng.uniform(-5.0, 55.0, B)], -1)
+    tp = terrain.at_offsets(torch.tensor(off, dtype=torch.float32, device=device), z_scale)
+    gc = args[2].clone()
+    gc[2] += terrain.height(tp, gc[0], gc[1])
+    args[2] = gc
+    return args, terrain.rows(tp)
+
+
+@pytest.mark.parametrize("B", [1024, 37, 5])
+@pytest.mark.parametrize("motor_dynamics", [False, True])
+def test_control_step_on_terrain_matches_plain(cuda, B, motor_dynamics):
+    cfg = config.test_default()
+    args, terr = terrain_inputs(B, B + 11, cuda, motor_dynamics)
+    tail = (cfg.substeps, cfg.contact_slip_vel, 0.0, cfg.simulation_dt)
+    before = phys_cuda.launches
+    got = phys_cuda.control_step(*args, *tail, terrain=terr)
+    torch.cuda.synchronize()
+    assert phys_cuda.launches == before + 1
+    plain = phys_cuda.control_step_plain(*args, *tail, terrain=terr)
+    flat = phys_cuda.control_step_plain(*args, *tail)
+    assert (plain[5] > 0).any(), "no toe in contact: the contact branch went untested"
+    assert not torch.equal(plain[5], flat[5]), "the ground height changed no contact force"
+    for i, atol in enumerate(CHAIN_C_ATOL):
+        torch.testing.assert_close(got[i], plain[i], atol=atol, rtol=1e-3 if i in (4, 5) else 0)
+
+
+@pytest.mark.parametrize("B", [1024, 5])
+def test_control_step_zero_z_scale_is_flat(cuda, B):
+    """A grid at height scale 0 computes, bit for bit, what flat ground does."""
+    cfg = config.test_default()
+    args, terr = terrain_inputs(B, B + 13, cuda, False, z_scale=0.0)
+    tail = (cfg.substeps, cfg.contact_slip_vel, 2.0 / cfg.simulation_dt, cfg.simulation_dt)
+    flat = phys_cuda.control_step(*args, *tail)
+    zero = phys_cuda.control_step(*args, *tail, terrain=terr)
+    torch.cuda.synchronize()
+    for a, b in zip(flat, zero):
+        assert torch.equal(a, b)
+
+
+def test_control_step_refuses_bad_terrain(cuda):
+    args, terr = terrain_inputs(4, 0, cuda, False)
+    tail = (8, 0.1, 0.0, 2.5e-4)
+    for bad, match in ((terr._replace(grid=terr.grid.cpu()), "grid"),
+                       (terr._replace(grid=terr.grid.double()), "grid"),
+                       (terr._replace(grid=terr.grid.T), "grid"),
+                       (terr._replace(offset=terr.offset.T.contiguous()), "offset.*shape"),
+                       (terr._replace(cell=terr.cell[:3]), "cell.*shape"),
+                       (terr._replace(z_scale=terr.z_scale.cpu()), "z_scale.*float32")):
+        with pytest.raises(ValueError, match=match):
+            phys_cuda.control_step(*args, *tail, terrain=bad)
 
 
 @pytest.mark.parametrize("B", [1024, 37, 5])

@@ -27,6 +27,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import (
 )
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as tlanes
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as tmdl
+from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import terrain as tterrain
 
 torch.set_num_threads(1)
 
@@ -155,3 +156,12 @@ def test_smoke_bound_counts_fewer_operations_than_the_plain_version():
     one, eight = (chip_smoke.phys_ops_per_env(n, pd_law=True, motor_dynamics=True)
                   for n in (1, 8))
     assert eight == 8 * one and one > need
+    # on terrain: a lookup under each of the 4 toes and 8 corners, still under the plain
+    # version's count with its ground_fn
+    terrain = chip_smoke.phys_ops_per_env(1, pd_law=False, terrain=True)
+    assert terrain - need == 12 * chip_smoke.TERRAIN_LOOKUP_OPS
+    tp = tterrain.at_offsets(torch.tensor([[100.0, 20.0]] * B), 0.1)
+    plain_t = chip_smoke.count_ops(lambda: tlanes.substep(
+        P, gc, torch.zeros(18, B), torch.zeros(12, B), torch.zeros(6, B), 0.1, 0.0, 2.5e-4,
+        ground_fn=lambda x, y: tterrain.height(tp, x, y))) / B
+    assert 0.25 * plain_t < terrain < 0.5 * plain_t and plain_t - plain > terrain - need

@@ -394,7 +394,9 @@ def test_checkpoint_round_trip_with_adam_state(tmp_path):
     import pickle
     with open(path, "rb") as f:
         blob = pickle.load(f)
-    assert set(blob) == {"step", "params", "adam"}
+    # the terrain height scale is recorded for runs on terrain, None here
+    assert set(blob) == {"step", "params", "adam", "terrain_z_scale"}
+    assert blob["terrain_z_scale"] is None
     assert all(isinstance(v, np.ndarray) for v in blob["params"].values())
 
 

@@ -99,12 +99,46 @@ def test_resume_continues_the_run(first_run, tmp_path):
 
 
 @pytest.mark.parametrize("flag,match", [
-    (["--no-lanes"], "per-env step"), (["--distributed"], "multi-GPU"),
-    (["--terrain-z-curriculum", "0.0,0.1"], "terrain")])
+    (["--no-lanes"], "per-env step"), (["--distributed"], "multi-GPU")])
 def test_flags_that_are_not_ported_raise(flag, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match) as e:
         ttrain.main(TINY + ["--max-updates", "1", "--log-dir", str(tmp_path)] + flag)
     assert "ROADMAP.md" in str(e.value) and not os.listdir(tmp_path)
+
+
+def test_terrain_curriculum_without_a_terrain_config_exits(tmp_path):
+    with pytest.raises(SystemExit, match="needs a terrain config"):
+        ttrain.main(TINY + ["--max-updates", "1", "--log-dir", str(tmp_path),
+                            "--terrain-z-curriculum", "0.0,0.1"])
+    assert not os.listdir(tmp_path)
+    # with --distributed, which still raises, the curriculum never runs unsharded
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        ttrain.main(TINY + ["--cfg", os.path.join(TORCH_PKG, "configs", "bp5_relax_terrain.yaml"),
+                            "--log-dir", str(tmp_path), "--distributed",
+                            "--terrain-z-curriculum", "0.0,0.1"])
+
+
+def test_cli_test_evaluates_a_port_checkpoint(first_run, capsys):
+    """cli.test --model takes a checkpoint that cli.train wrote, and still
+    refuses the JAX package's with load_checkpoint's message."""
+    from high_speed_quadrupedal_locomotion_by_irrl_torch.cli import test as ttest
+    ckpt = os.path.join(first_run, "ckpt_final.pkl")
+    res = ttest.main(["--model", ckpt, "--eval", "--commands", "1", "--steps", "3",
+                      "--device", "cpu"])
+    assert len(res["tracking"]) == 1 and np.isfinite(res["tracking"][0]["v_mean"])
+    assert "cmd 1.0 m/s -> v " in capsys.readouterr().out
+    # the run's CSV export (the same update, rounded to 6 decimals) rolls the same
+    got = ttest.main(["--model", os.path.join(first_run, "csv_final"), "--eval",
+                      "--commands", "1", "--steps", "3", "--device", "cpu"])
+    assert abs(got["tracking"][0]["v_mean"] - res["tracking"][0]["v_mean"]) < 1e-4
+
+
+def test_cli_test_refuses_a_jax_checkpoint(tmp_path):
+    path = str(tmp_path / "jax_ckpt.pkl")
+    jio.save_checkpoint(path, (jio.load_bp5_csv(ARTIFACT), None), 0)
+    from high_speed_quadrupedal_locomotion_by_irrl_torch.cli import test as ttest
+    with pytest.raises(ValueError, match="not a checkpoint of the PyTorch port"):
+        ttest.main(["--model", path, "--eval", "--steps", "1", "--device", "cpu"])
 
 
 def test_no_silent_cpu_run_without_a_gpu(tmp_path):
@@ -148,15 +182,18 @@ def test_learn_hooks_schedule_and_interrupt():
     assert [r["timesteps"] for r in rows] == [8, 16, 24]
 
 
-@pytest.mark.parametrize("name", ["bp5_train.yaml", "bp5_imitation.yaml"])
+@pytest.mark.parametrize("name", ["bp5_train.yaml", "bp5_imitation.yaml",
+                                  "bp5_imitation_terrain.yaml", "bp5_relax_terrain.yaml"])
 def test_yaml_copies_parse_to_the_same_fields(name):
     tcfg = tconfig.from_yaml(os.path.join(TORCH_PKG, "configs", name))
     jcfg = jconfig.from_yaml(os.path.join(JAX_PKG, "configs", name))
     got, want = dataclasses.asdict(tcfg), dataclasses.asdict(jcfg)
     assert got == {k: want[k] for k in got} and set(got) <= set(want)
     assert tcfg.episode_len == 750 and tcfg.wildcat and tcfg.stochastic_dynamics
+    assert tcfg.terrain == ("terrain" in name) and tcfg.terrain_sampled
     assert sorted(os.path.basename(p) for p in glob.glob(os.path.join(TORCH_PKG, "configs", "*")))\
-        == ["bp5_imitation.yaml", "bp5_train.yaml"]
+        == ["bp5_imitation.yaml", "bp5_imitation_terrain.yaml", "bp5_relax_terrain.yaml",
+            "bp5_train.yaml"]
 
 
 def test_loggers_and_run_dir(tmp_path, capsys):
