@@ -69,7 +69,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``cli.test`` on the terrain config; seconds an update split into rollout,
    GAE and epochs, and PyTorch ops a control step of the terrain rollout;
 12. ``analysis.parity.srb_vs_bp5`` at cmd 1 on the flagship artifact (through
-   the LSTM and physics kernels) against the JAX package's on the CPU.
+   the LSTM and physics kernels) against the JAX package's on the CPU;
+13. the whole-body iLQR at bench.py's shape (64 problems x horizon 50 x 8
+   iterations, 2 model substeps, linearize_chunk 1; 5 distinct commands,
+   each repeated): ``trot.batched_solve`` (dense physics, frozen linearizer,
+   no kernel launch) with its warm-start and final costs against the JAX
+   package's on the CPU; ``trot.solve_batch_lanes`` with the frozen
+   linearizer through the substep kernel ((1 + 8) x 50 x 2 = 900 launches,
+   asserted), its warm start against the same solver's on the plain
+   substep; and with FD Jacobians (+ 8 x 50 x 2 launches, asserted), below
+   its warm start, with the FD Jacobians of one control step through the
+   kernel, at the warm start's and the result's states, against the plain
+   substep's in float64. The lanes solves' final costs against the plain
+   substep's, JAX's and a start 1e-6 m higher are recorded, held by no limit
+   (an 8-iteration solve's cost moves as much under that nudge as between
+   float orders). Every trace non-increasing, every repeat of a problem bit
+   for bit alike; solves/s, ms and PyTorch ops a call, device busy share and
+   the kernel's share of it, peak memory, the bound, and the time of a call
+   by solver phase.
 
 Phase 3 also holds the control step with its Convert2Torque inputs (a torque
 feedforward and a PD scale) against its plain loop, at the closed loop's
@@ -77,7 +94,11 @@ impulse scale, and checks that leaving them out is bit for bit a feedforward
 of 0 and a scale of 1; and the control step on terrain (the heightmap's sum
 and 16 samples against the CPU's, then 1024 envs at offsets spread over the
 whole map, z_scale 0.1) against its plain loop at (c)'s tolerances, with
-z_scale 0 giving the flat kernel's bits, timed with and without terrain.
+z_scale 0 giving the flat kernel's bits, timed with and without terrain;
+and the single substep at the whole-body MPC's dt = 1 ms on the inputs of a
+bench-shape lanes solve's launches at each of its lane widths (64; the line
+search's 512; the FD sweep's 6272), with the same non-finite lanes on both
+sides, timed at 512 and 6272.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
@@ -88,6 +109,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -109,8 +131,10 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.cli import test as cli_test
 from high_speed_quadrupedal_locomotion_by_irrl_torch.cli import train as cli_train
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import io as mio
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm
+from high_speed_quadrupedal_locomotion_by_irrl_torch.mpc import ilqr
 from high_speed_quadrupedal_locomotion_by_irrl_torch.mpc import runtime as mpc_runtime
 from high_speed_quadrupedal_locomotion_by_irrl_torch.mpc import srb
+from high_speed_quadrupedal_locomotion_by_irrl_torch.mpc import trot
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import (
     _build, lstm_cuda, pd_torque, phys_cuda,
 )
@@ -423,6 +447,49 @@ JAX_TERRAIN_BASE = [[[[0.00068636128, -0.00307377963, 0.254630417, 0.999886096, 
                        0.0328763686, -0.00245685293],
                       [-0.0379060991, 0.00575478189, 0.369173557, 0.994928241, -0.000194636596,
                        0.0966926217, -0.0277177524]]]]
+
+# phase 13: the whole-body iLQR at bench.py's shape (_bench_ilqr, bench.py:174-212, 409-440):
+# 64 problems x horizon 50 x 8 iterations, 2 model substeps, linearize_chunk 1; commands
+# 1 + 3 (i % 5) / 4 from the stand pose, i.e. 5 distinct problems, each repeated
+WB_BATCH, WB_HORIZON, WB_ITERS, WB_DISTINCT, WB_REPS = 64, 50, 8, 5, 3
+# the JAX package's batched_solve (frozen linearizer) of the 5 distinct problems on the CPU,
+# unrounded, produced by
+#   PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_wb.py bench
+# the warm start's cost (0 iterations), then the cost after 8 iterations
+JAX_WB_WARM_COST = [666.7714233398438, 1192.0445556640625, 2062.811279296875,
+                    3317.393310546875, 4989.18017578125]
+JAX_WB_COST = [380.0652770996094, 1006.8085327148438, 808.282470703125, 1366.2529296875,
+               2217.344970703125]
+# Limits, fixed before the first run on the H100. The warm starts (one rollout, no step
+# taken): the dense solver reads within 3.0e-4 of JAX's on the CPU: held at 2e-3 (the kernel's
+# lanes solver reads within 5.9e-4 of the plain substep's on the card). The dense solver's
+# final costs after 8 iterations: 5e-2 of JAX's, JAX's own lanes-vs-vmap tolerance
+# (tests/test_mpc.py:169-170); it reads within 3.7e-2 on the card.
+WB_WARM_RTOL = 2e-3
+WB_COST_RTOL = 5e-2
+# The lanes solvers' final costs are recorded against the plain substep's and JAX's, and held
+# by no limit: at this shape an 8-iteration solve's cost moves with a 1e-6 m change of the
+# start height, as much as it moves between float orders. On the CPU the plain substep's own
+# lanes solve moves by up to 13 % (frozen, cmd 1) and 128 % (FD, cmd 2.5) under it, and its
+# float64 FD solve reads 2.23 x the float32 one's cost at cmd 2.5, produced by
+#   PYTHONPATH=. python tests/test_torch_wb.py witness
+# (5e-2 on the frozen run and 0.8-1.6 x the frozen run's on the FD run, fixed before the
+# first run on the H100, failed there at cmd 2.5 by 5.1 % and at cmd 1 / 2.5 by 1.63 / 2.22).
+# What the kernel adds to a lanes solve is held where no step-size decision intervenes: the
+# warm start above, every lane width's last launch in phase 3, and the FD Jacobians below.
+# WB_NUDGE_M: the start-height change whose effect on the kernel's own solve is recorded
+WB_NUDGE_M = 1e-6
+# the central-FD Jacobian of one control step (fd_eps 1e-3) through the kernel against the
+# same through the plain substep in float64, on the 250 states of the 5 distinct problems'
+# warm start and of the FD solve's result: relative Frobenius error per state. The plain
+# substep in float32 reads median 9.7e-5 / 8.6e-5 and max 2.7e-4 / 5.5e-4 (warm start / final
+# states) on the CPU (the witness command above): held at 1e-3 (median) and 1e-2 (max)
+WB_JAC_RTOL_MEDIAN, WB_JAC_RTOL_MAX = 1e-3, 1e-2
+# the single substep at the MPC's dt = 1 ms, kernel against plain, on the states of a real
+# line search and FD sweep: SUBSTEP_ATOL with the velocity and force rows x 4 (the substep
+# is 4x as long), and those rows also relative, since a line search's rollouts can fall
+MPC_SUBSTEP_ATOL = (1e-5, 4e-3, 1e-5, 4e-3, 2e-2, 2e-2)
+MPC_SUBSTEP_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -919,6 +986,107 @@ def _check_phys_terrain(rec: dict) -> None:
         f"samples, {t_ops} ops needed)")
 
 
+def wb_setup(linearizer: str, n_iter: int = WB_ITERS):
+    """bench.py's whole-body problem set on the card: (cfg, MPCConfig, nominal
+    params, TrotProblem of WB_BATCH problems)."""
+    cfg = config.test_default().replace(obs_noise=0.0)
+    mc = trot.MPCConfig(horizon=WB_HORIZON, n_iter=n_iter, model_substeps=2, linearize_chunk=1,
+                        linearizer=linearizer)
+    i = np.arange(WB_BATCH)
+    cmds = torch.tensor(np.stack([1.0 + 3.0 * (i % 5) / 4.0, 0.0 * i, 0.0 * i], -1),
+                        dtype=torch.float32, device=DEVICE)
+    x0 = trot.standing_x0(cfg, DEVICE)
+    probs = trot.make_problem(cfg, x0[:19].expand(WB_BATCH, 19),
+                              torch.zeros(WB_BATCH, 18, device=DEVICE), cmds,
+                              torch.zeros(WB_BATCH, device=DEVICE), WB_HORIZON)
+    return cfg, mc, mdl.nominal_params(cfg, device=DEVICE), probs
+
+
+class _SubstepInputs:
+    """Inside, the inputs of the last ``phys_cuda.substep`` call at each lane
+    width (cloned), by width."""
+
+    def __enter__(self):
+        self.saved, self.last = phys_cuda.substep, {}
+
+        def recorded(P, gcT, gvT, tauT, bwT, slip, imp, dt):
+            self.last[gcT.shape[-1]] = (P, gcT.clone(), gvT.clone(), tauT.clone(), bwT.clone(),
+                                        slip, imp, dt)
+            return self.saved(P, gcT, gvT, tauT, bwT, slip, imp, dt)
+        phys_cuda.substep = recorded
+        return self
+
+    def __exit__(self, *exc):
+        phys_cuda.substep = self.saved
+
+
+def _assert_rows_finite(got, want, atols, rtol: float) -> tuple[float, int]:
+    """Kernel rows against plain rows over lanes (last axis): the lanes with a
+    non-finite value must be the same on both sides; the finite ones within
+    ``atols`` (velocity and force rows 1, 3, 4, 5 also within ``rtol``
+    relative). Returns (max |err| over the finite lanes, non-finite lanes)."""
+    def bad(rows):
+        return ~torch.stack([torch.isfinite(r).reshape(-1, r.shape[-1]).all(0)
+                             for r in rows]).all(0)
+    bad_got, bad_want = bad(got), bad(want)
+    if not torch.equal(bad_got, bad_want):
+        raise RuntimeError(f"non-finite lanes differ: kernel {int(bad_got.sum())}, plain "
+                           f"{int(bad_want.sum())}, in one only {int((bad_got ^ bad_want).sum())}")
+    ok = ~bad_want
+    err = 0.0
+    for i, atol in enumerate(atols):
+        g, w = got[i][..., ok], want[i][..., ok]
+        torch.testing.assert_close(g, w, atol=atol, rtol=rtol if i in (1, 3, 4, 5) else 0)
+        err = max(err, float((g - w).abs().max()))
+    return err, int(bad_want.sum())
+
+
+def _check_phys_mpc(rec: dict) -> None:
+    """(e) The single substep at the whole-body MPC's operating point: dt =
+    control_dt / 2 = 1 ms, on the inputs of the last launch at each lane width
+    of a bench-shape lanes solve with FD Jacobians (1 iteration): the rollout
+    (64), the line search (64 x 8 step sizes = 512) and the FD sweep (64 x 1
+    knot x 2 (37 + 12) = 6272), kernel against plain; then both timed at 512
+    and 6272 lanes."""
+    cfg, mc, params, probs = wb_setup("fd", n_iter=1)
+    with _SubstepInputs() as rec_in:
+        trot.solve_batch_lanes(cfg, mc, params, probs)
+    torch.cuda.synchronize()
+    widths = sorted(rec_in.last)
+    want_widths = [WB_BATCH, WB_BATCH * mc.n_alphas, WB_BATCH * 2 * (37 + 12)]
+    if widths != want_widths:
+        raise RuntimeError(f"whole-body lanes solve launched at widths {widths}, "
+                           f"expected {want_widths}")
+    out = {}
+    for K in widths:
+        args = rec_in.last[K]
+        got = phys_cuda.substep(*args)
+        want = lanes.substep(*args)
+        torch.cuda.synchronize()
+        err, n_bad = _assert_rows_finite(got, want, MPC_SUBSTEP_ATOL, MPC_SUBSTEP_RTOL)
+        speed = float(args[2][6:].abs().max())
+        log(f"[3] phys_substep at dt {args[7] * 1e3:g} ms, K={K} (whole-body solve's inputs, "
+            f"joint speeds up to {speed:.3g} rad/s): matches plain, max |err| {err:.3g}, "
+            f"{n_bad} non-finite lanes on both sides")
+        entry = {"max_abs_err": err, "non_finite_lanes": n_bad}
+        if K != WB_BATCH:
+            kt = timings(lambda: phys_cuda.substep(*args), kernel="phys_substep_kernel")
+            pt = timings(lambda: lanes.substep(*args), reps=3)
+            ops = K * phys_ops_per_env(1, pd_law=False)
+            # the MPC's lanes share one nominal robot: its parameters are read once
+            # (make_dynamics_batch hands the kernel K copies; ROADMAP Queue 2)
+            nbytes = 4 * (phys_cuda.P_ROWS + K * (19 + 18 + 12 + 6 + phys_cuda.OUT_ROWS))
+            b_ms, b_by = bound_ms(nbytes, ops)
+            entry.update(ms=kt["ms"], call_ms=kt["call_ms"], plain_ms=pt["ms"],
+                         plain_call_ms=pt["call_ms"], bound_ms=b_ms, bound_by=b_by)
+            log(f"[3] phys_substep K={K}: kernel {kt['ms']:.4f} ms on the device ({kt['source']}; "
+                f"{kt['call_ms']:.4f} ms a wrapper call), plain {pt['ms']:.2f} ms device / "
+                f"{pt['call_ms']:.2f} ms a call, bound {b_ms:.5f} ms ({b_by})")
+        out[K] = entry
+    rec["phys_substep"]["wb_max_abs_err"] = max(e["max_abs_err"] for e in out.values())
+    rec["phys_substep"]["wb_widths"] = out
+
+
 def _lstm_pair_inputs(B: int, d: int, n: int, seed: int, masked: bool):
     """Two weight sets and strided views of one packed state, as forward()
     hands them to the pair launch."""
@@ -1217,6 +1385,7 @@ def phase_kernels() -> dict:
     rec = {"phys_substep": {}, "lstm_cell": {}}
     _check_phys(rec)
     _check_phys_terrain(rec)
+    _check_phys_mpc(rec)
     _check_lstm(rec)
     _check_lstm_training(rec)
     return rec
@@ -1898,6 +2067,278 @@ def phase_parity(params) -> dict:
     return {**got, "launches": counts}
 
 
+# --- phase 13 -----------------------------------------------------------------
+
+class _GraphedPlainSubstep:
+    """Inside, ``phys_cuda.substep`` is the plain ``phys_lanes.substep``
+    replayed from a CUDA graph (``ilqr._Replayed``, one a lane width and
+    parameter set): the same kernels as the plain function without its ~27k
+    host dispatches a call (0.2-0.4 s eager, which would make a plain solve's
+    900 substeps take minutes)."""
+
+    def __enter__(self):
+        self.saved, self.graphs = phys_cuda.substep, {}
+        phys_cuda.substep = self._call
+        return self
+
+    def __exit__(self, *exc):
+        phys_cuda.substep = self.saved
+        self.graphs.clear()
+
+    def _call(self, P, gcT, gvT, tauT, bwT, slip, imp, dt):
+        key = (id(P), slip, imp, dt)
+        if key not in self.graphs:
+            self.graphs[key] = (ilqr._Replayed(
+                lambda *rows: lanes.substep(P, *rows, slip, imp, dt)), P)
+        return self.graphs[key][0](gcT, gvT, tauT, bwT)
+
+
+WB_SITES = {"rollout": (ilqr, "_rollout"), "linearize": (ilqr, "_linearize"),
+            "cost_derivatives": (ilqr, "_quadratize"),
+            "terminal_derivatives": (ilqr, "_quadratize_terminal"),
+            "riccati": (ilqr, "_backward"), "line_search": (ilqr, "_line_search"),
+            "step_size_pick": (ilqr, "_accept")}
+
+
+def wb_flops(linearizer: str, lanes_physics: bool, B: int = WB_BATCH, T: int = WB_HORIZON,
+             n_iter: int = WB_ITERS, n_alphas: int = 8, n: int = 37, m: int = 12) -> int:
+    """Operations a bench-shape solve needs at least, counted from the code
+    (a multiply-add two): every control-step evaluation of the physics (2
+    substeps after the PD law and clamp: the rollout, n_alphas line-search
+    rollouts an iteration and, with FD Jacobians, 2 (n + m) perturbed ones a
+    knot; phys_ops_per_env), the Riccati knot with its gains
+    (riccati_flops(n, m)) and, with the frozen linearizer, its matrix algebra:
+    the 18 x 18 inverse (n^3 / 3 for the factor, 2 n^3 for the two solves
+    against the identity) and one 18 x 18 matrix-vector product a tangent and
+    substep for the n + m tangents. The cost's derivatives and the
+    surrogate's kinematics are left out (a lower bound)."""
+    evals = B * T * (1 + n_iter * n_alphas)
+    if linearizer == "fd":
+        evals += B * T * n_iter * 2 * (n + m)
+    ops = evals * phys_ops_per_env(2, pd_law=True) + B * T * n_iter * riccati_flops(n, m)
+    if linearizer == "frozen":
+        nv = 18
+        ops += B * T * n_iter * (nv ** 3 // 3 + 2 * nv ** 3 + (n + m) * 2 * 2 * nv * nv)
+    return ops
+
+
+def _repeats_identical(res) -> bool:
+    """Every repeat of each distinct problem solved bit for bit alike."""
+    for r in range(WB_DISTINCT):
+        idx = torch.arange(r, WB_BATCH, WB_DISTINCT, device=DEVICE)
+        for x in (res.us, res.xs, res.cost_trace):
+            if not torch.equal(x[idx], x[idx[:1]].expand_as(x[idx])):
+                return False
+    return True
+
+
+def _wb_distinct(cost: torch.Tensor) -> list[float]:
+    return [float(c) for c in cost[:WB_DISTINCT].double()]
+
+
+def _wb_measure(name: str, run, launches_per_solve: int) -> dict:
+    """The checked call with its op count and launches, then WB_REPS timed
+    calls, then one profiled call timed by solver phase (the device synced
+    around each): returns the checked call's result and the record."""
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with OpCounter() as oc:
+        res = run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    counts = read_counts()
+    check_counts(counts, {"phys_substep": launches_per_solve, "lstm_cell": 0,
+                          "lstm_cell_train": 0, "lstm_cell_bwd": 0}, f"13 {name}")
+    for f in ("us", "xs", "cost", "cost_trace"):
+        if not torch.isfinite(getattr(res, f)).all():
+            raise RuntimeError(f"phase 13 {name}: non-finite {f}")
+    trace = res.cost_trace.double()
+    if not bool((trace[:, 1:] <= trace[:, :-1] * (1 + 1e-6)).all()):
+        raise RuntimeError(f"phase 13 {name}: a cost trace rises")
+    if not _repeats_identical(res):
+        raise RuntimeError(f"phase 13 {name}: repeats of a problem differ")
+    walls = []
+    for _ in range(WB_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(walls)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with _SyncedTimers(WB_SITES) as split:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t1) * 1e3
+    dev = _kernel_device_ms(prof)
+    busy = dev["all"] / prof_ms if dev["all"] > 0 else None
+    phase_ms = {k: v * 1e3 for k, v in split.items() if v > 0}
+    phase_ms["rest"] = prof_ms - sum(phase_ms.values())
+    return res, {"ms": ms, "ms_all": walls, "solves_per_s": WB_BATCH / ms * 1e3,
+                 "torch_ops": oc.calls, "launches": counts, "peak_memory_bytes": peak,
+                 "device_busy": busy, "device_ms": dev["all"], "profiled_ms": prof_ms,
+                 "phys_kernel_device_ms": dev["phys_substep"],
+                 "phys_kernel_share": dev["phys_substep"] / dev["all"] if dev["all"] else None,
+                 "ms_by_phase_profiled_call": phase_ms}
+
+
+def _wb_log(name: str, r: dict, flops: int) -> None:
+    # bytes: x0, the joint and joint-rate references, the terminal reference and the
+    # command in; us, xs, the cost and its trace out
+    nbytes = 4 * WB_BATCH * ((37 + 2 * WB_HORIZON * 12 + 12 + 3)
+                             + (WB_HORIZON * 12 + (WB_HORIZON + 1) * 37 + 1 + WB_ITERS))
+    b_ms, b_by = bound_ms(nbytes, flops)
+    r.update(bound_ms=b_ms, bound_by=b_by, flops=flops)
+    split = ", ".join(f"{k} {v:.0f}" for k, v in sorted(r["ms_by_phase_profiled_call"].items(),
+                                                       key=lambda kv: -kv[1]))
+    busy, share = r["device_busy"], r["phys_kernel_share"]
+    log(f"[13] {name}: {r['ms']:.0f} ms a call (median of {WB_REPS}; {min(r['ms_all']):.0f}-"
+        f"{max(r['ms_all']):.0f}), {r['solves_per_s']:.2f} solves/s; {r['torch_ops']} PyTorch "
+        f"ops a call; device busy {'not measured' if busy is None else f'{busy:.4f}'} "
+        f"({r['device_ms']:.1f} ms of device time in a {r['profiled_ms']:.0f} ms profiled call), "
+        f"substep kernel {'-' if share is None else f'{share:.3f}'} of it; peak memory "
+        f"{r['peak_memory_bytes'] / 2 ** 20:.1f} MiB; bound {b_ms:.4f} ms ({b_by}: "
+        f"{flops / 1e9:.3f} GFLOP); ms of the profiled call by solver phase: {split}")
+
+
+def _nudged(probs, dz: float):
+    """The problems with the start height raised by ``dz`` metres."""
+    return probs._replace(x0=probs.x0 + dz * torch.eye(37, device=DEVICE)[2])
+
+
+def _wb_nudge(name: str, r: dict, solve, probs) -> None:
+    """Record how far the solve's distinct final costs move when the start is
+    WB_NUDGE_M higher."""
+    r["nudge_cost"] = _wb_distinct(solve(_nudged(probs, WB_NUDGE_M)).cost)
+    r["nudge_rel"] = [abs(g / w - 1) for g, w in zip(r["nudge_cost"], r["cost"])]
+    log(f"[13] {name}: the start {WB_NUDGE_M:g} m higher moves the final costs by "
+        f"{[round(x, 5) for x in r['nudge_rel']]} ({[round(c, 3) for c in r['nudge_cost']]})")
+
+
+def _check_fd_jacobians(cfg, mc, params, states: dict) -> dict:
+    """Central-FD Jacobians of one control step (fd_eps of ``mc``) through the
+    substep kernel and through the plain substep in float32 and float64 (both
+    replayed), at the states of each (xs (B, T+1, 37), us (B, T, 12)) of
+    ``states``' distinct problems: the kernel's relative error per state
+    against float64 within WB_JAC_RTOL_MEDIAN (median) and WB_JAC_RTOL_MAX."""
+    jac = lambda dyn, X, U: torch.cat(ilqr._jacobian_fd(dyn, X, U, mc.fd_eps), -1)  # noqa: E731
+    out = {}
+    for name, (xs, us) in states.items():
+        X = xs[:WB_DISTINCT, :-1].reshape(-1, 37)
+        U = us[:WB_DISTINCT].reshape(-1, 12)
+        jk = jac(trot.make_dynamics_batch(cfg, mc, params), X, U)
+        with _GraphedPlainSubstep():
+            jp = jac(trot.make_dynamics_batch(cfg, mc, params), X, U)
+            j64 = jac(trot.make_dynamics_batch(cfg, mc, params.map(lambda t: t.double())),
+                      X.double(), U.double())
+        norm = j64.norm(dim=(-2, -1))
+        rel_k = ((jk.double() - j64).norm(dim=(-2, -1)) / norm).cpu()
+        rel_p = ((jp.double() - j64).norm(dim=(-2, -1)) / norm).cpu()
+        rec = {"states": int(X.shape[0]), "kernel_median": float(rel_k.median()),
+               "kernel_max": float(rel_k.max()), "plain_median": float(rel_p.median()),
+               "plain_max": float(rel_p.max())}
+        log(f"[13] FD Jacobians at the {name} states ({rec['states']}, {X.shape[0] * 98} lanes): "
+            f"relative error against the plain substep in float64, kernel median "
+            f"{rec['kernel_median']:.3g} max {rec['kernel_max']:.3g}, plain float32 median "
+            f"{rec['plain_median']:.3g} max {rec['plain_max']:.3g} (limits {WB_JAC_RTOL_MEDIAN:g}, "
+            f"{WB_JAC_RTOL_MAX:g})")
+        if not (bool(torch.isfinite(jk).all()) and rec["kernel_median"] <= WB_JAC_RTOL_MEDIAN
+                and rec["kernel_max"] <= WB_JAC_RTOL_MAX):
+            raise RuntimeError(f"phase 13: the kernel's FD Jacobians at the {name} states: {rec}")
+        out[name] = rec
+    return out
+
+
+def phase_wholebody() -> dict:
+    """trot.batched_solve (dense physics, frozen linearizer) and
+    trot.solve_batch_lanes (through the substep kernel; frozen and FD
+    Jacobians) at bench.py's whole-body shape: the dense solve held to JAX's
+    batched_solve on the CPU, the lanes solves' warm start to the plain
+    substep's and their FD Jacobians to the plain substep's in float64; the
+    lanes solves' final costs against the plain substep's, JAX's and a
+    nudged start's recorded."""
+    out = {}
+    # 1. the dense solver: no kernel on its path
+    cfg, mc, params, probs = wb_setup("frozen")
+    pb = params.expand(WB_BATCH)   # per-problem robots, as bench.py's broadcast params
+    warm = trot.batched_solve(cfg, dataclasses.replace(mc, n_iter=0), pb, probs)
+    res, r = _wb_measure("dense", lambda: trot.batched_solve(cfg, mc, pb, probs), 0)
+    r["warm_cost"], r["cost"] = _wb_distinct(warm.cost), _wb_distinct(res.cost)
+    r["trace"] = res.cost_trace[:WB_DISTINCT].tolist()
+    _wb_compare("dense", r, JAX_WB_WARM_COST, JAX_WB_COST, "JAX batched_solve", gate=True)
+    _wb_log("dense batched_solve, frozen", r, wb_flops("frozen", False))
+    out["dense_frozen"] = r
+
+    # 2. the lanes solver, frozen: launches = (1 + n_iter) T model_substeps
+    frozen_launches = (1 + mc.n_iter) * mc.horizon * mc.model_substeps
+    warm_m = dataclasses.replace(mc, n_iter=0)
+    warm = trot.solve_batch_lanes(cfg, warm_m, params, probs)
+    lanes_frozen = lambda p: trot.solve_batch_lanes(cfg, mc, params, p)  # noqa: E731
+    res_k, r = _wb_measure("lanes frozen", lambda: lanes_frozen(probs), frozen_launches)
+    r["warm_cost"], r["cost"] = _wb_distinct(warm.cost), _wb_distinct(res_k.cost)
+    with _GraphedPlainSubstep():
+        warm_p = trot.solve_batch_lanes(cfg, warm_m, params, probs)
+        res_p = lanes_frozen(probs)
+    r["plain_warm_cost"], r["plain_cost"] = _wb_distinct(warm_p.cost), _wb_distinct(res_p.cost)
+    r["trace"] = res_k.cost_trace[:WB_DISTINCT].tolist()
+    r["plain_trace"] = res_p.cost_trace[:WB_DISTINCT].tolist()
+    _wb_compare("lanes frozen", r, r["plain_warm_cost"], r["plain_cost"], "the plain substep",
+                gate=False)
+    _wb_compare("lanes frozen", r, None, JAX_WB_COST, "JAX batched_solve", gate=False)
+    _wb_nudge("lanes frozen", r, lanes_frozen, probs)
+    _wb_log("solve_batch_lanes, frozen", r, wb_flops("frozen", True))
+    out["lanes_frozen"] = r
+
+    # 3. the lanes solver, FD: + n_iter (T / linearize_chunk) model_substeps launches
+    cfg, mc_fd, params, probs = wb_setup("fd")
+    fd_launches = frozen_launches + mc_fd.n_iter * (mc_fd.horizon // mc_fd.linearize_chunk) \
+        * mc_fd.model_substeps
+    lanes_fd = lambda p: trot.solve_batch_lanes(cfg, mc_fd, params, p)  # noqa: E731
+    res_fd, r = _wb_measure("lanes fd", lambda: lanes_fd(probs), fd_launches)
+    r["cost"] = _wb_distinct(res_fd.cost)
+    r["trace"] = res_fd.cost_trace[:WB_DISTINCT].tolist()
+    r["over_frozen"] = [c / f for c, f in zip(r["cost"], out["lanes_frozen"]["cost"])]
+    log(f"[13] lanes fd: final costs {[round(c, 3) for c in r['cost']]}, "
+        f"{[round(x, 4) for x in r['over_frozen']]} x the frozen run's")
+    if not bool((res_fd.cost < warm.cost).all()):
+        raise RuntimeError("phase 13 lanes fd: a final cost is not below its warm start")
+    _wb_nudge("lanes fd", r, lanes_fd, probs)
+    r["jacobians"] = _check_fd_jacobians(cfg, mc_fd, params, {
+        "warm start": (warm.xs, warm.us), "FD solve's result": (res_fd.xs, res_fd.us)})
+    _wb_log("solve_batch_lanes, fd", r, wb_flops("fd", True))
+    out["lanes_fd"] = r
+    out["launch_formula"] = {"frozen": "(1 + n_iter) * horizon * model_substeps",
+                             "fd": "(1 + n_iter) * horizon * model_substeps + n_iter * "
+                                   "(horizon / linearize_chunk) * model_substeps",
+                             "frozen_launches": frozen_launches, "fd_launches": fd_launches}
+    out["launches"] = {"phys_substep": out["lanes_frozen"]["launches"]["phys_substep"]
+                       + out["lanes_fd"]["launches"]["phys_substep"],
+                       "lstm_cell": 0, "lstm_cell_train": 0, "lstm_cell_bwd": 0}
+    return out
+
+
+def _wb_compare(name: str, r: dict, warm_ref, cost_ref, what: str, gate: bool) -> None:
+    """The distinct problems' warm-start costs against ``what``'s, held within
+    WB_WARM_RTOL; their final costs against it, held within WB_COST_RTOL if
+    ``gate``, else recorded."""
+    for key, got, want in (("warm", r.get("warm_cost"), warm_ref),
+                           ("final", r["cost"], cost_ref)):
+        if want is None:
+            continue
+        rtol = WB_WARM_RTOL if key == "warm" else WB_COST_RTOL if gate else None
+        rel = [abs(g / w - 1) for g, w in zip(got, want)]
+        r[f"{key}_rel_vs_{'jax' if 'JAX' in what else 'plain'}"] = rel
+        log(f"[13] {name}: {key} costs {[round(g, 3) for g in got]}, "
+            f"{[round(x, 5) for x in rel]} off {what}'s "
+            f"({'recorded' if rtol is None else f'limit {rtol:g}'})")
+        if rtol is not None and max(rel) > rtol:
+            raise RuntimeError(f"phase 13 {name}: {key} costs {got} vs {what} {want}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU")
     ap.add_argument("--out", default=None, help="also write all measurements to this JSON file")
@@ -1921,6 +2362,7 @@ def main(argv=None) -> int:
     terrain_eval = phase_terrain_eval()
     terrain_training = phase_terrain_training()
     parity_rec = phase_parity(params)
+    wholebody = phase_wholebody()
 
     # entry: the kernel function that `launches` counts and the record's times read; path:
     # the main path that launches it, whose own run `launches` was read after. An entry the
@@ -1941,13 +2383,14 @@ def main(argv=None) -> int:
                           "lstm_cell_bwd_kernel", "training")}
     runs = {"serving": serving, "full_width": full, "training": training, "mpc": mpc,
             "terrain_eval": terrain_eval, "terrain_training": terrain_training,
-            "parity": parity_rec}
+            "parity": parity_rec, "wb_dense": wholebody["dense_frozen"],
+            "wb_lanes_frozen": wholebody["lanes_frozen"], "wb_lanes_fd": wholebody["lanes_fd"]}
     extras = ("shape", "per_launch", "call_ms", "plain_call_ms", "library_call_ms", "substep_ms",
               "substep_plain_ms", "substep_bound_ms", "substep_bound_by", "substep_max_abs_err",
               "c2t_ms", "c2t_pd_path_ms", "c2t_bound_ms", "c2t_bound_by", "c2t_max_abs_err",
               "c2t_null_bitwise", "terrain_ms", "terrain_flat_ms", "terrain_plain_ms",
               "terrain_bound_ms", "terrain_bound_by", "terrain_max_abs_err",
-              "terrain_zero_bitwise",
+              "terrain_zero_bitwise", "wb_max_abs_err", "wb_widths",
               "cell_shape", "cell_ms", "cell_plain_ms", "cell_bound_ms", "cell_bound_by",
               "cell_library_ms", "cell_max_abs_err", "cell_per_launch")
     kernels = []
@@ -1969,7 +2412,8 @@ def main(argv=None) -> int:
                        "build": build, "kernels": kern, "serving": serving,
                        "full_width": full, "bptt": bptt, "training": training,
                        "batched_solve": solve, "mpc": mpc, "terrain_eval": terrain_eval,
-                       "terrain_training": terrain_training, "parity": parity_rec}, f, indent=1,
+                       "terrain_training": terrain_training, "parity": parity_rec,
+                       "wholebody": wholebody}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -71,8 +71,9 @@ def schedule_batches(cfg, cmds) -> dict:
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
     if args.engine == "wb":
-        raise NotImplementedError("--engine wb is not in the PyTorch port yet (ROADMAP.md, "
-                                  "Queue 1: whole-body iLQR)")
+        raise NotImplementedError("--engine wb is not in the PyTorch port yet: the batched "
+                                  "whole-body iLQR solvers are (mpc/trot.py); its receding-"
+                                  "horizon loop is ROADMAP.md Queue 1 item 1c")
     if args.viewer:
         raise NotImplementedError("--viewer is not in the PyTorch port yet (ROADMAP.md, "
                                   "Queue 1: analysis and tooling, analysis/viewer.py)")

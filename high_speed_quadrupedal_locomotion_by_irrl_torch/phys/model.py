@@ -117,6 +117,22 @@ def _build_static():
 (_MASS, _COM, _INERTIA, _JORIGIN, JAXIS) = _build_static()
 
 
+def _ancestor_mask() -> np.ndarray:
+    """(13, 18): dof d moves body b (the 6 base dofs move every body; a joint
+    moves the bodies below it)."""
+    A = np.zeros((NUM_BODIES, NV))
+    A[:, :6] = 1.0
+    for b in range(1, NUM_BODIES):
+        p = b
+        while p > 0:
+            A[b, 6 + p - 1] = 1.0
+            p = PARENT[p]
+    return A
+
+
+ANC_MASK = _ancestor_mask()
+
+
 @dataclasses.dataclass
 class RobotParams:
     """Per-environment physical parameters; leading env axis when batched.

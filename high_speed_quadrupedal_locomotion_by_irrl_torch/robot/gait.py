@@ -102,6 +102,20 @@ def toe_targets(cfg: EnvConfig, command: torch.Tensor, t: torch.Tensor,
     return torch.where(in_stance[..., None], toe_st, toe_sw)
 
 
+def raibert_weight(cfg: EnvConfig, t: torch.Tensor, touchdown_match: bool = False) -> torch.Tensor:
+    """(..., 4) continuous per-leg weight of a Raibert foothold shift at gait
+    time t (...): the swing blend b_sw in swing, 1 - b_st in stance, so a
+    weighted shift moves only the Bezier touchdown endpoint (the JAX
+    package's ``gait.raibert_weight``)."""
+    offsets = dev_mod.tensor(cfg.phase_offsets, t.device)
+    phase = torch.remainder(t[..., None] + offsets * cfg.period, cfg.period) / cfg.period
+    in_stance = phase < cfg.lam
+    r_st = torch.clamp(phase / cfg.lam, 0.0, 1.0)
+    r_sw = torch.clamp((phase - cfg.lam) / (1.0 - cfg.lam), 0.0, 1.0)
+    b_st = r_st if touchdown_match else _bezier_blend(r_st)
+    return torch.where(in_stance, 1.0 - b_st, _bezier_blend(r_sw))
+
+
 def hip_y_offsets(cfg: EnvConfig) -> np.ndarray:
     """temp_offset (Environment.hpp:1794-1798)."""
     return np.array([-L_HIP + cfg.lean_front, L_HIP - cfg.lean_front,
@@ -112,12 +126,15 @@ def gait_reference(cfg: EnvConfig, command: torch.Tensor, t: torch.Tensor,
                    xy_shift: torch.Tensor | None = None,
                    touchdown_match: bool = False) -> GaitRef:
     """Joint + end-effector reference at gait time t (B,) for the filtered
-    command (B, 3). xy_shift (B, 2): a horizontal Raibert foothold correction
-    added to every toe target of an env (the SRB runtime's form)."""
+    command (B, 3). xy_shift: a horizontal Raibert foothold correction, (B, 2)
+    added to every toe target of an env (the SRB runtime's form) or (B, 4, 2)
+    per leg (the whole-body MPC's, weighted by :func:`raibert_weight`)."""
     dev = command.device
     toe = toe_targets(cfg, command, t, touchdown_match)
     if xy_shift is not None:
-        toe = torch.cat([toe[..., :2] + xy_shift[..., None, :], toe[..., 2:]], dim=-1)
+        if xy_shift.dim() < toe.dim():
+            xy_shift = xy_shift[..., None, :]
+        toe = torch.cat([toe[..., :2] + xy_shift, toe[..., 2:]], dim=-1)
     ik_in = toe.clone()
     ik_in[..., 1] = ik_in[..., 1] + dev_mod.tensor(hip_y_offsets(cfg), dev)
     joint_ref = legs_ik(ik_in)

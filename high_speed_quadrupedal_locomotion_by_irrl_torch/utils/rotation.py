@@ -1,5 +1,6 @@
 """Quaternion / rotation helpers (wxyz, scalar first), batched over leading
-dims. Port of the subset of ``utils/rotation.py`` the evaluation slice uses."""
+dims. Port of the subset of ``utils/rotation.py`` that the environment, the
+rigid-body dynamics and the whole-body MPC cost use."""
 
 from __future__ import annotations
 
@@ -36,3 +37,16 @@ def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate vector v by quaternion q (body->world if q is body orientation)."""
     return torch.einsum("...ij,...j->...i", quat_to_matrix(q), v)
+
+
+def quat_integrate(q: torch.Tensor, omega_world: torch.Tensor, dt) -> torch.Tensor:
+    """Integrate orientation by world-frame angular velocity over dt (exp map).
+
+    The rate's norm is ``sqrt(sum(w * w))`` as in the JAX package, so its
+    forward derivative at a zero rate is the same (not a number) there and
+    here."""
+    angle = torch.sqrt(torch.sum(omega_world * omega_world, dim=-1, keepdim=True))
+    half = 0.5 * angle * dt
+    k = torch.where(angle > 1e-9, torch.sin(half) / torch.clamp_min(angle, 1e-12), 0.5 * dt)
+    dq = torch.cat([torch.cos(half), k * omega_world], dim=-1)
+    return quat_normalize(quat_mul(dq, q))

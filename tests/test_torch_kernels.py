@@ -520,3 +520,25 @@ def test_wrappers_refuse_bad_cuda_input(cuda):
         lstm_cuda.lstm_cell_pair(w, w, x, x, torch.zeros(48, 4, device=cuda).T, ch, ch, ch)
     with pytest.raises(ValueError, match="row stride"):
         lstm_cuda.lstm_cell_pair(w, w, x, x, ch, ch, torch.zeros(4, 96, device=cuda)[:, :48], ch)
+
+
+def test_replayed_linearizer_matches_its_eager_calls(cuda):
+    """The frozen linearizer replayed from a CUDA graph (``ilqr._Replayed``,
+    as the iLQR solvers run it on the card) against the same function issued
+    op by op, at three knots' inputs of one shape: the same kernels, so
+    within float32 rounding of the largest entry (1e-6)."""
+    from high_speed_quadrupedal_locomotion_by_irrl_torch.mpc import ilqr, linearize, trot
+
+    cfg = config.test_default()
+    params = mdl.nominal_params(cfg, device=cuda)
+    lin = linearize.make_frozen_linearizer(cfg, trot.MPCConfig(), params)
+    replayed = ilqr._Replayed(lin)
+    x0 = trot.standing_x0(cfg, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for _ in range(3):
+        X = x0 + 0.02 * torch.randn((1, 64, 37), generator=gen, device=cuda)
+        U = 0.2 * torch.randn((1, 64, 12), generator=gen, device=cuda)
+        for got, want in zip(replayed(X, U), lin(X, U)):
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * scale)
+    assert len(replayed.graphs) == 1

@@ -47,6 +47,9 @@ print(len(names), bad)
 assert len(names) >= 15, names
 slice4 = {'mpc.srb', 'mpc.runtime', 'ops.linalg', 'analysis.rawdata', 'analysis.parity', 'cli.mpc'}
 assert {pkg.__name__ + '.' + m for m in slice4} <= set(names), names
+wholebody = {'ops.linalg', 'utils.rotation', 'phys.spatial', 'phys.contact', 'phys.dynamics',
+             'mpc.cost', 'mpc.ilqr', 'mpc.linearize', 'mpc.trot'}
+assert {pkg.__name__ + '.' + m for m in wholebody} <= set(names), names
 assert not bad, bad
 """
 
