@@ -86,7 +86,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    float orders). Every trace non-increasing, every repeat of a problem bit
    for bit alike; solves/s, ms and PyTorch ops a call, device busy share and
    the kernel's share of it, peak memory, the bound, and the time of a call
-   by solver phase.
+   by solver phase;
+14. the whole-body receding-horizon loop (``mpc/runtime.wb_*``, the env step
+   ``step_batch``: one physics launch a control step, asserted): (a) the
+   fleet at bench.py's ``_bench_wb_rh`` configuration (128 robots x h16, 2
+   iterations, linearize_chunk 16, relin_every 2) for 50 control steps, a
+   batch row against its command alone, controller-steps/s, falls, peak
+   memory, the bound, and PyTorch ops, ms and the device's busy share of a
+   control step split into dense model steps, linearizer replays, Riccati,
+   cost derivatives and the env step; (b) ``cli.mpc --engine wb`` at cmd 1-5
+   (3 schedule batches) held to the JAX package's loop on the CPU and to the
+   same loop stepping JAX's lanes physics (bases over 15 steps, speed,
+   falls); (c) ``analysis.parity.mpc_vs_bp5`` at cmd 1 (through both
+   kernels), its solve from JAX's start held to JAX's cost and mae /
+   torque_mae to JAX's; (d) a 25-step ``terrain_model=True`` loop on the
+   sampled heightmap, finite and upright. Phase 14 runs in a second process
+   (``--wb-worker``), (a) first, alongside phases 9-13, whose loops, like
+   its own, are host-bound on one Python thread with the card mostly idle.
 
 Phase 3 also holds the control step with its Convert2Torque inputs (a torque
 feedforward and a PD scale) against its plain loop, at the closed loop's
@@ -450,8 +466,9 @@ JAX_TERRAIN_BASE = [[[[0.00068636128, -0.00307377963, 0.254630417, 0.999886096, 
 
 # phase 13: the whole-body iLQR at bench.py's shape (_bench_ilqr, bench.py:174-212, 409-440):
 # 64 problems x horizon 50 x 8 iterations, 2 model substeps, linearize_chunk 1; commands
-# 1 + 3 (i % 5) / 4 from the stand pose, i.e. 5 distinct problems, each repeated
-WB_BATCH, WB_HORIZON, WB_ITERS, WB_DISTINCT, WB_REPS = 64, 50, 8, 5, 3
+# 1 + 3 (i % 5) / 4 from the stand pose, i.e. 5 distinct problems, each repeated; each
+# solver timed on one call after its checked one (phase 14 needs the time a median of 3 took)
+WB_BATCH, WB_HORIZON, WB_ITERS, WB_DISTINCT, WB_REPS = 64, 50, 8, 5, 1
 # the JAX package's batched_solve (frozen linearizer) of the 5 distinct problems on the CPU,
 # unrounded, produced by
 #   PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_wb.py bench
@@ -490,6 +507,218 @@ WB_JAC_RTOL_MEDIAN, WB_JAC_RTOL_MAX = 1e-3, 1e-2
 # is 4x as long), and those rows also relative, since a line search's rollouts can fall
 MPC_SUBSTEP_ATOL = (1e-5, 4e-3, 1e-5, 4e-3, 2e-2, 2e-2)
 MPC_SUBSTEP_RTOL = 1e-4
+
+# phase 14: the whole-body receding-horizon loop (mpc/runtime.wb_*). Every limit below was
+# fixed before the phase's first run on the H100.
+# (a) the fleet at bench.py's _bench_wb_rh (bench.py:214-245): 128 robots, horizon 16, 2
+# iterations, linearize_chunk 16, the Jacobians of every 2nd iteration, the frozen
+# linearizer, commands 0.5 + 2.5 (i % 8) / 7; 50 control steps where bench.py takes 100
+# (the only cut)
+WB_FLEET_B, WB_FLEET_STEPS = 128, 50
+WB_FLEET_MC = dict(horizon=16, n_iter=2, model_substeps=2, linearize_chunk=16, n_alphas=4,
+                   relin_every=2, linearizer="frozen")
+# row 1 of a 2-command batch against that command alone over 10 steps: gc within 1e-4
+# (the JAX package's test_wb_mpc_fleet_batch_matches_single)
+WB_FLEET_CHECK_STEPS, WB_FLEET_ATOL = 10, 1e-4
+# (b) cli.mpc --engine wb at cmd 1-5 (3 schedule batches: {1, 2}, {3}, {4, 5}) for
+# WB_TRACK_STEPS control steps each, against two JAX loops on the CPU at the same length,
+# both from JAX's start with JAX's dense MPC model: JAX's own loop (the per-env bp.step) and
+# the same loop stepping JAX's lanes physics (step_batch), the port's path. Produced by
+#   PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_wb_loop.py witness 150 <N>
+# per command: the trailing-40 % forward speed and falls of both loops, the largest move of
+# either speed when the start is 1e-6 m higher or lower (nudge_spread), the lanes loop's mean
+# solve cost, the first step where the two JAX loops' bases part by 1e-3; and the lanes
+# loop's bases (gc[:3]) over the first 40 steps
+# N = 60 steps, the least the phase may take: a control step of a batch is host-bound, 0.9-1.4 s
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md), so (b) alone takes 160-250 s
+WB_TRACK_COMMANDS = "1,2,3,4,5"
+WB_TRACK_STEPS = 60
+JAX_WB_TABLE = {
+    1.0: {"v_lanes": -0.00032585239387117326, "v_per_env": -3.502052277326584e-05, "falls_lanes":
+         0, "falls_per_env": 0, "nudge_spread": 0.01076766662299633, "cost_lanes":
+         67.53113555908203, "lanes_vs_per_env_first_1e-3": 57},
+    2.0: {"v_lanes": -0.0023493764456361532, "v_per_env": -0.0057617127895355225, "falls_lanes": 0,
+         "falls_per_env": 0, "nudge_spread": 0.006280815461650491, "cost_lanes":
+         203.16712951660156, "lanes_vs_per_env_first_1e-3": None},
+    3.0: {"v_lanes": 0.06613557785749435, "v_per_env": 0.06653154641389847, "falls_lanes": 0,
+         "falls_per_env": 0, "nudge_spread": 0.004070654511451721, "cost_lanes": 392.2254943847656,
+         "lanes_vs_per_env_first_1e-3": None},
+    4.0: {"v_lanes": 0.18774037063121796, "v_per_env": 0.19313187897205353, "falls_lanes": 0,
+         "falls_per_env": 0, "nudge_spread": 0.008359730243682861, "cost_lanes": 859.7212524414062,
+         "lanes_vs_per_env_first_1e-3": None},
+    5.0: {"v_lanes": 0.18720358610153198, "v_per_env": 0.1886332482099533, "falls_lanes": 0,
+         "falls_per_env": 0, "nudge_spread": 0.0019993484020233154, "cost_lanes":
+         1350.7723388671875, "lanes_vs_per_env_first_1e-3": None}}
+JAX_WB_BASES = {
+    1.0: [[1.26965433e-05, -1.75410086e-08, 0.349965274], [3.82550206e-05, -3.60862416e-08,
+         0.349876374], [6.86821222e-05, -4.97465926e-08, 0.349739254], [0.000102868587,
+         -7.49107514e-08, 0.349554151], [0.00014094697, -1.21480056e-07, 0.349320114],
+         [0.000183235621, -1.9778777e-07, 0.349036038], [0.000229999729, -3.13420372e-07,
+         0.348700821], [0.000281363347, -4.80047277e-07, 0.348313689], [0.000337254867,
+         -7.11286191e-07, 0.347874105], [0.000397364085, -1.02184731e-06, 0.347382069],
+         [0.000461117103, -1.4259299e-06, 0.346838057], [0.000527666765, -1.93486335e-06,
+         0.346243382], [0.000595905352, -2.55421924e-06, 0.345600128], [0.000664502382,
+         -3.28030274e-06, 0.344911128], [0.000731958309, -4.09686982e-06, 0.344180048],
+         [0.000796679349, -4.97306519e-06, 0.343411237], [0.000857056351, -5.86310398e-06,
+         0.342609674], [0.000911543961, -6.70812142e-06, 0.341780424], [0.000958734076,
+         -7.44096997e-06, 0.340928614], [0.000997413765, -7.99335066e-06, 0.340058923],
+         [0.0010266084, -8.3043351e-06, 0.339175463], [0.00104561192, -8.32870683e-06,
+         0.338281065], [0.00105400605, -8.04327829e-06, 0.337377489], [0.00105167041,
+         -7.44977388e-06, 0.336465061], [0.00103878567, -6.57380951e-06, 0.335542798],
+         [0.00101582729, -5.46041383e-06, 0.334608495], [0.000983547885, -4.16733201e-06,
+         0.333658874], [0.000942951825, -2.75767138e-06, 0.33269003], [0.000895262812,
+         -1.29326304e-06, 0.331697464], [0.000841879228, 1.70561918e-07, 0.330676556],
+         [0.000784320117, 1.5882589e-06, 0.329622656], [0.0007241696, 2.92559184e-06, 0.328531504],
+         [0.000663009298, 4.15962859e-06, 0.327399164], [0.000602589746, 5.26090207e-06,
+         0.326222509], [0.000544045935, 6.26762039e-06, 0.324998498], [0.000488266785,
+         7.11716802e-06, 0.32372278], [0.000436443952, 7.80877235e-06, 0.322394878],
+         [0.000389491732, 8.39953373e-06, 0.321016282], [0.000346904329, 8.93491415e-06,
+         0.319586843], [0.000309146795, 9.40773498e-06, 0.318107277]],
+    2.0: [[9.32001967e-06, -1.60103166e-08, 0.349968016], [3.74201773e-05, -4.06445686e-08,
+         0.34987843], [7.91813873e-05, -7.02817218e-08, 0.349732995], [0.000128195315,
+         -1.26826393e-07, 0.349534035], [0.000183411656, -2.25281113e-07, 0.34928149],
+         [0.00024476106, -3.762012e-07, 0.348974884], [0.000312249002, -5.90228979e-07,
+         0.348613739], [0.000385732361, -8.78701996e-07, 0.348197758], [0.000464836688,
+         -1.25497115e-06, 0.347726941], [0.000548888114, -1.73060948e-06, 0.347201854],
+         [0.000636964629, -2.31831996e-06, 0.346623659], [0.000727789477, -3.02340641e-06,
+         0.345994145], [0.000819757406, -3.83799306e-06, 0.345316172], [0.000911018404,
+         -4.73745058e-06, 0.344593495], [0.000999537762, -5.68431096e-06, 0.343830377],
+         [0.00108314189, -6.61923923e-06, 0.343031943], [0.00115957879, -7.45949228e-06,
+         0.342203856], [0.00122667663, -8.11042992e-06, 0.341351867], [0.00128238113,
+         -8.47302454e-06, 0.34048149], [0.00132485619, -8.45632621e-06, 0.339597583],
+         [0.00135258143, -7.99075406e-06, 0.33870402], [0.001364414, -7.03869864e-06, 0.337803274],
+         [0.00135968241, -5.60043964e-06, 0.336896092], [0.00133825268, -3.71330702e-06,
+         0.335981876], [0.00130057393, -1.44469323e-06, 0.335058421], [0.00124762673,
+         1.11936549e-06, 0.334122419], [0.00118090631, 3.88542685e-06, 0.333169878],
+         [0.00110228022, 6.76284344e-06, 0.332196206], [0.00101389084, 9.67044798e-06,
+         0.331196845], [0.0009180489, 1.25400784e-05, 0.330167234], [0.000817106105,
+         1.53174751e-05, 0.329103112], [0.000713374931, 1.79615326e-05, 0.328000665],
+         [0.000609062205, 2.04427743e-05, 0.326856583], [0.000506209559, 2.2741744e-05,
+         0.325668216], [0.000406768086, 2.48464676e-05, 0.324433655], [0.000312358112,
+         2.676851e-05, 0.323151261], [0.000223872252, 2.85416645e-05, 0.321819812],
+         [0.000142058911, 3.01844429e-05, 0.320438683], [6.75892879e-05, 3.16541154e-05,
+         0.319007903], [1.2558628e-06, 3.29556715e-05, 0.317528248]],
+    3.0: [[2.44286894e-05, 3.04919396e-08, 0.349947184], [8.33571539e-05, 1.66799783e-08,
+         0.34981057], [0.000162991855, -5.8013466e-08, 0.349600226], [0.000257266802,
+         -2.06467078e-07, 0.34931761], [0.000364647683, -4.09600915e-07, 0.348963529],
+         [0.000486021134, -7.66016342e-07, 0.348542243], [0.000622999272, -1.33728918e-06,
+         0.348057836], [0.000772504776, -2.00953605e-06, 0.347514659], [0.000926824985,
+         -2.71541921e-06, 0.346918613], [0.00107744802, -3.54299732e-06, 0.346278429],
+         [0.00121352135, -4.38381403e-06, 0.345601618], [0.00132608227, -4.98933605e-06,
+         0.344896227], [0.00141396653, -5.11868166e-06, 0.344187975], [0.00147498737,
+         -4.52505583e-06, 0.343493104], [0.00150471774, -3.01457135e-06, 0.34281072],
+         [0.00149796891, -6.0377107e-07, 0.342139959], [0.00145086413, 2.46994978e-06,
+         0.341478109], [0.00136673707, 5.98009956e-06, 0.34081912], [0.00124750182, 9.9763829e-06,
+         0.340159118], [0.00109842361, 1.42231956e-05, 0.339483947], [0.000930912676,
+         1.85208082e-05, 0.338782072], [0.000753671804, 2.203445e-05, 0.338044077],
+         [0.000576565741, 2.497901e-05, 0.337267607], [0.000406736275, 2.78914704e-05,
+         0.336453587], [0.000248288503, 3.06608381e-05, 0.335601002], [0.000106330852,
+         3.33941098e-05, 0.334709972], [-1.5626887e-05, 3.59429905e-05, 0.333772659],
+         [-0.000116766154, 3.81318605e-05, 0.332783073], [-0.000197321031, 3.99571654e-05,
+         0.331742108], [-0.000257793319, 4.14634196e-05, 0.330652058], [-0.000298852159,
+         4.26980187e-05, 0.329516053], [-0.000321528467, 4.37427188e-05, 0.328336209],
+         [-0.000332162628, 4.49041363e-05, 0.327108651], [-0.000322603213, 4.60263509e-05,
+         0.325829566], [-0.000290203607, 4.69687257e-05, 0.324503541], [-0.000242375943,
+         4.79320806e-05, 0.323130995], [-0.000182148637, 4.90863749e-05, 0.321706742],
+         [-0.000110699439, 5.05385397e-05, 0.320225656], [-2.99513231e-05, 5.24276038e-05,
+         0.318683624], [6.17088663e-05, 5.45714975e-05, 0.317079574]],
+    4.0: [[3.65236701e-05, 1.94875213e-07, 0.349932134], [0.000137892363, 3.59516036e-07,
+         0.349750191], [0.000294291502, 3.82500446e-07, 0.349466413], [0.000483024312,
+         3.89525837e-07, 0.349099129], [0.00068812212, 1.84835741e-07, 0.348664522],
+         [0.000894428231, -1.16022704e-07, 0.348175436], [0.00108594412, -2.0597011e-07,
+         0.347642988], [0.00125514902, 6.76456509e-08, 0.347076178], [0.0014000606, 9.29644443e-07,
+         0.346488863], [0.00151844416, 2.55885266e-06, 0.345902085], [0.00160532317,
+         5.01691056e-06, 0.345326573], [0.00165894022, 7.4147847e-06, 0.344760835], [0.00167405896,
+         1.02297072e-05, 0.34420529], [0.00164526945, 1.37956122e-05, 0.343660295], [0.00157391152,
+         1.78037117e-05, 0.343123257], [0.00146129692, 2.21423288e-05, 0.342582136],
+         [0.00131058693, 2.65682629e-05, 0.342023522], [0.00113776478, 3.0762847e-05, 0.34143579],
+         [0.000961385143, 3.44167674e-05, 0.340813935], [0.000790046295, 3.74597621e-05,
+         0.340158045], [0.000628670678, 3.97348194e-05, 0.33946836], [0.000479761715,
+         4.16504154e-05, 0.338739604], [0.000342917454, 4.32071465e-05, 0.337963909],
+         [0.000217300287, 4.41248048e-05, 0.337137789], [0.000105098872, 4.49832223e-05,
+         0.336249202], [6.78567176e-06, 4.56339149e-05, 0.335306704], [-7.52514825e-05,
+         4.60394222e-05, 0.334316909], [-0.000141100929, 4.68264516e-05, 0.333277822],
+         [-0.000180405419, 4.80891395e-05, 0.332174391], [-0.000185817349, 5.0009683e-05,
+         0.331000268], [-0.0001552795, 5.33051461e-05, 0.329766124], [-8.42426962e-05,
+         5.81469831e-05, 0.328472823], [2.64915288e-05, 6.43357635e-05, 0.327114254],
+         [0.000170874788, 7.15536517e-05, 0.3256917], [0.000339555554, 7.95460801e-05,
+         0.324216932], [0.000525734562, 8.78449282e-05, 0.322703302], [0.00071336003,
+         9.55409196e-05, 0.32115981], [0.000887723931, 0.000101637066, 0.319593072],
+         [0.00105138822, 0.000105341831, 0.318024069], [0.00120874355, 0.000105864558,
+         0.316464126]],
+    5.0: [[3.97856275e-05, 2.80101119e-07, 0.349925548], [0.000147819635, 1.10697169e-06,
+         0.349729061], [0.00032031216, 1.68183738e-06, 0.349422455], [0.000533200975,
+         1.61628327e-06, 0.349025577], [0.000759899325, 1.46585592e-06, 0.348560423],
+         [0.000982027967, 1.48163474e-06, 0.348042995], [0.00118985039, 1.53695305e-06,
+         0.347482234], [0.00138116721, 2.06471327e-06, 0.346880585], [0.00155182066,
+         3.97096937e-06, 0.346256644], [0.00169516588, 7.48557841e-06, 0.345634043],
+         [0.00180592842, 1.23316704e-05, 0.345020086], [0.00187842874, 1.84512282e-05,
+         0.344415814], [0.00190610311, 2.5495905e-05, 0.343825191], [0.00188655255, 3.28441383e-05,
+         0.343246132], [0.00181917264, 4.04920793e-05, 0.342677474], [0.0017085555, 4.75636334e-05,
+         0.34210819], [0.00155703793, 5.37913584e-05, 0.341523767], [0.00136697933, 5.91804055e-05,
+         0.340916038], [0.00115539064, 6.37560661e-05, 0.340279281], [0.000941279926,
+         6.73832546e-05, 0.339609027], [0.000737199094, 7.01150857e-05, 0.338906378],
+         [0.000548351672, 7.22409313e-05, 0.338175297], [0.000372912851, 7.36723014e-05,
+         0.337407649], [0.000208795696, 7.43787896e-05, 0.336592615], [6.2033796e-05,
+         7.47759914e-05, 0.335716248], [-6.58001154e-05, 7.49597457e-05, 0.334786415],
+         [-0.000172144602, 7.51627813e-05, 0.333810776], [-0.00025400109, 7.59828399e-05,
+         0.332787484], [-0.000308312709, 7.73401116e-05, 0.33170259], [-0.000329814211,
+         7.950898e-05, 0.330548376], [-0.000313490222, 8.26954783e-05, 0.329329222],
+         [-0.000256004743, 8.70488293e-05, 0.328045696], [-0.000162048105, 9.26968205e-05,
+         0.326703727], [-2.9785042e-05, 9.95647351e-05, 0.325305253], [0.000135709357,
+         0.000106885527, 0.323853463], [0.000314408593, 0.000113744078, 0.322366774],
+         [0.000498610607, 0.000119754965, 0.320863336], [0.000681936624, 0.00012349413,
+         0.319345444], [0.000859872613, 0.000125290069, 0.31782195], [0.00103827019,
+         0.000123817314, 0.316301942]]}
+# bases within 2e-3 of the JAX lanes loop over the first 15 steps (a T = 0.20 s gait puts a
+# phase boundary on a knot of the h16 horizon from step 35, a T = 0.14 s one from step 20:
+# there XLA and eager PyTorch may round the float32 clock to either side); the speed within
+# max(0.1 m/s, 2 x JAX's nudge spread) of both JAX loops; falls equal to the lanes loop's
+WB_BASE_ROWS, WB_BASE_ATOL, WB_V_TOL = 15, 2e-3, 0.1
+# (c) analysis.parity.mpc_vs_bp5 at cmd 1 on ARTIFACT (warmup 200, MPCConfig(horizon=50): 8
+# iterations, forward-mode AD Jacobians), the JAX package's on the CPU, produced by
+#   PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_wb_loop.py parity
+# mae, torque_mae, the solve's warm-start and final cost; the state it solves from ([gc; gv]
+# of its policy rollout at step 199); how far mae, torque_mae and the final cost (relative)
+# move when that start is 1e-6 m higher or lower. Held: the port's warm start from JAX's start
+# within WB_WARM_RTOL of JAX's (phase 13's limit: one rollout, no step decision), and the
+# port's mae and torque_mae end to end within max(5e-3, 2 x JAX's spread) of JAX's. The final
+# cost from JAX's start is recorded against JAX's and held by no limit: the nudge moves JAX's
+# own final cost by 50 % and the port's on the CPU from 100.3 to 441.5 (the same command), so
+# no limit on it separates a right port from a wrong one (phase 13's finding for the lanes
+# solves); the solve is held to descend from its warm start.
+JAX_MPC_VS_BP5 = {"mae": 0.1751755326986313, "torque_mae": 0.3083701729774475,
+                  "warm_cost": 594.1945190429688, "cost": 115.56867218017578}
+JAX_MPC_VS_BP5_X0 = [0.181168109, 0.000889111194, 0.281368375, 0.999906838, -0.00684671476,
+                     -0.00765947811, -0.00899370201, 0.0741564706, -0.990990222, 1.70796013,
+                     -0.163991943, -0.573399127, 1.73296869, 0.143116325, -0.579201579, 1.74227667,
+                     -0.137911394, -0.842408717, 1.80709457, 0.93881917, -0.0495576598,
+                     0.0410154872, -0.275415391, 0.403025389, -0.0532041639, 0.813388884,
+                     -2.41451144, -0.142152578, 0.270096987, 0.592089236, -3.0987134, 0.484328151,
+                     -1.18928719, -0.174977586, 0.365025848, -3.35896325, -0.286406189]
+JAX_MPC_VS_BP5_SPREAD = {"mae": 0.045736998319625854, "torque_mae": 0.09462776780128479,
+                         "cost": 0.5019299480578621}
+MPC_VS_BP5_ATOL = 5e-3
+# (d) a short terrain_model=True loop at wb_speed_schedule(cmd 1) on the sampled heightmap
+# (z_scale 0.05) at JAX's map offset (env_init(cfg, PRNGKey(0))): finite and upright (base
+# height within 0.2-0.5 m, no fall); its bases against the JAX lanes loop's are recorded
+WB_TERRAIN_STEPS, WB_TERRAIN_Z = 25, 0.05
+JAX_WB_TERRAIN = {"offset": [52.9175262, 5.82514], "falls": 0, "bases": [[1.26778523e-05,
+                  -1.75386923e-08, 0.320445597], [3.82015169e-05, -3.60429766e-08, 0.320357114],
+                  [6.85919949e-05, -4.95923658e-08, 0.32022047], [0.000102742248, -7.4558379e-08,
+                  0.320035815], [0.000140785269, -1.20819934e-07, 0.319802225], [0.00018303949,
+                  -1.96697684e-07, 0.319518566], [0.000229770085, -3.11751819e-07, 0.319183797],
+                  [0.00028110118, -4.77615231e-07, 0.318797082], [0.000336961064, -7.07868992e-07,
+                  0.318357915], [0.000397039606, -1.01718047e-06, 0.317866206], [0.000460762851,
+                  -1.41972089e-06, 0.317322582], [0.000527284981, -1.92703305e-06, 0.316728294],
+                  [0.000595496676, -2.54441079e-06, 0.316085368], [0.000664066232, -3.26803274e-06,
+                  0.315396756], [0.000731494336, -4.08177266e-06, 0.314666003], [0.000796187902,
+                  -4.95495669e-06, 0.31389758], [0.000856536615, -5.84189729e-06, 0.313096315],
+                  [0.000910996052, -6.68390658e-06, 0.312267393], [0.000958158984, -7.41403073e-06,
+                  0.311415941], [0.000996811199, -7.96410586e-06, 0.310546637], [0.00102597743,
+                  -8.27338226e-06, 0.309663475], [0.00104495161, -8.29681085e-06, 0.308769345],
+                  [0.00105331501, -8.01133592e-06, 0.307866067], [0.00105094758, -7.41878512e-06,
+                  0.306953937], [0.00103802967, -6.54481209e-06, 0.306031972]]}
 
 
 def log(msg: str) -> None:
@@ -2071,7 +2300,7 @@ def phase_parity(params) -> dict:
 
 class _GraphedPlainSubstep:
     """Inside, ``phys_cuda.substep`` is the plain ``phys_lanes.substep``
-    replayed from a CUDA graph (``ilqr._Replayed``, one a lane width and
+    replayed from a CUDA graph (``ilqr.Replayed``, one a lane width and
     parameter set): the same kernels as the plain function without its ~27k
     host dispatches a call (0.2-0.4 s eager, which would make a plain solve's
     900 substeps take minutes)."""
@@ -2088,7 +2317,7 @@ class _GraphedPlainSubstep:
     def _call(self, P, gcT, gvT, tauT, bwT, slip, imp, dt):
         key = (id(P), slip, imp, dt)
         if key not in self.graphs:
-            self.graphs[key] = (ilqr._Replayed(
+            self.graphs[key] = (ilqr.Replayed(
                 lambda *rows: lanes.substep(P, *rows, slip, imp, dt)), P)
         return self.graphs[key][0](gcT, gvT, tauT, bwT)
 
@@ -2101,7 +2330,8 @@ WB_SITES = {"rollout": (ilqr, "_rollout"), "linearize": (ilqr, "_linearize"),
 
 
 def wb_flops(linearizer: str, lanes_physics: bool, B: int = WB_BATCH, T: int = WB_HORIZON,
-             n_iter: int = WB_ITERS, n_alphas: int = 8, n: int = 37, m: int = 12) -> int:
+             n_iter: int = WB_ITERS, n_alphas: int = 8, n: int = 37, m: int = 12,
+             relin_every: int = 1) -> int:
     """Operations a bench-shape solve needs at least, counted from the code
     (a multiply-add two): every control-step evaluation of the physics (2
     substeps after the PD law and clamp: the rollout, n_alphas line-search
@@ -2110,15 +2340,17 @@ def wb_flops(linearizer: str, lanes_physics: bool, B: int = WB_BATCH, T: int = W
     (riccati_flops(n, m)) and, with the frozen linearizer, its matrix algebra:
     the 18 x 18 inverse (n^3 / 3 for the factor, 2 n^3 for the two solves
     against the identity) and one 18 x 18 matrix-vector product a tangent and
-    substep for the n + m tangents. The cost's derivatives and the
-    surrogate's kinematics are left out (a lower bound)."""
+    substep for the n + m tangents, on each iteration that relinearizes (every
+    ``relin_every``-th). The cost's derivatives and the surrogate's
+    kinematics are left out (a lower bound)."""
     evals = B * T * (1 + n_iter * n_alphas)
     if linearizer == "fd":
         evals += B * T * n_iter * 2 * (n + m)
     ops = evals * phys_ops_per_env(2, pd_law=True) + B * T * n_iter * riccati_flops(n, m)
     if linearizer == "frozen":
         nv = 18
-        ops += B * T * n_iter * (nv ** 3 // 3 + 2 * nv ** 3 + (n + m) * 2 * 2 * nv * nv)
+        relins = -(-n_iter // relin_every)
+        ops += B * T * relins * (nv ** 3 // 3 + 2 * nv ** 3 + (n + m) * 2 * 2 * nv * nv)
     return ops
 
 
@@ -2339,30 +2571,347 @@ def _wb_compare(name: str, r: dict, warm_ref, cost_ref, what: str, gate: bool) -
             raise RuntimeError(f"phase 13 {name}: {key} costs {got} vs {what} {want}")
 
 
+# --- phase 14 -----------------------------------------------------------------
+
+WB_LOOP_SITES = {**WB_SITES, "env_step": (bp, "step_batch")}
+
+
+def _wb_steady(cfg, mc, cmds, n: int = 4) -> dict:
+    """Control steps 2..n of one fleet rollout, past the first, which
+    captures the linearizer's CUDA graph: wall ms a step, device ms a step
+    under torch.profiler, and ms a step by WB_LOOP_SITES with the device
+    synchronized around each of their calls."""
+    segments = mpc_runtime._wb_segments(cfg, mc, cmds, torch.Generator(device=DEVICE), n, 1,
+                                        0.0, False, DEVICE, None)
+    with _SyncedTimers(WB_LOOP_SITES) as acc:
+        next(segments)
+        torch.cuda.synchronize()
+        before = dict(acc)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in segments:
+                pass
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    k = n - 1
+    ms, dev = wall / k * 1e3, _kernel_device_ms(prof)["all"] / k
+    split = {s: (acc[s] - before[s]) / k * 1e3 for s in WB_LOOP_SITES}
+    split["rest"] = ms - sum(split.values())
+    return {"ms": ms, "device_ms": dev, "device_busy": dev / ms if dev > 0 else None,
+            "ms_by_site": split}
+
+
+def _loop_sites(d: dict) -> dict:
+    """A control step of the loop by WB_LOOP_SITES, summed into: the dense
+    model steps (the rollout and the line search), the linearizer's replays,
+    Riccati, the cost derivatives, the env step and the rest (the step-size
+    pick among it); with the total where ``d`` has one."""
+    out = {"dense_model_steps": d["rollout"] + d["line_search"],
+           "linearizer_replay": d["linearize"], "riccati": d["riccati"],
+           "cost_derivatives": d["cost_derivatives"] + d["terminal_derivatives"],
+           "env_step": d["env_step"]}
+    out["rest"] = d.get("total", sum(d.values())) - sum(out.values())
+    if "total" in d:
+        out["total"] = d["total"]
+    return out
+
+
+def physics_only_counts(steps: int) -> dict:
+    """What an MPC loop of ``steps`` control steps launches: the physics
+    kernel once a step, no LSTM kernel."""
+    return {"phys_substep": PHYS_LAUNCHES_PER_STEP * steps, "lstm_cell": 0, "lstm_cell_train": 0,
+            "lstm_cell_bwd": 0}
+
+
+def phase_wb_fleet() -> dict:
+    """(a) wb_mpc_rollout_batch at bench.py's fleet configuration: row 1 of a
+    2-command batch against its command alone, then the measured run with its
+    launches, falls, rate, peak memory and bound, then ops and ms a control
+    step by site and the device busy share in steady state."""
+    cfg = config.test_default().replace(terrain=False, crucial=False)
+    mc = trot.MPCConfig(**WB_FLEET_MC)
+    i = np.arange(WB_FLEET_B)
+    cmds = np.stack([0.5 + 2.5 * (i % 8) / 7.0, 0.0 * i, 0.0 * i], -1).astype(np.float32)
+    fleet = lambda c, n: mpc_runtime.wb_mpc_rollout_batch(  # noqa: E731
+        cfg, mc, c, torch.Generator(device=DEVICE), n, device=DEVICE)
+    pair, one = fleet(cmds[:2], WB_FLEET_CHECK_STEPS), fleet(cmds[1:2], WB_FLEET_CHECK_STEPS)
+    batch_err = float((pair.gc[1] - one.gc[0]).abs().max())
+    log(f"[14a] row 1 of a 2-command batch against cmd {cmds[1, 0]:.4f} alone over "
+        f"{WB_FLEET_CHECK_STEPS} steps: gc within {batch_err:.3g} (limit {WB_FLEET_ATOL:g}); "
+        f"solve costs within {float((pair.solve_cost[1] - one.solve_cost[0]).abs().max()):.3g}")
+    if not batch_err <= WB_FLEET_ATOL:
+        raise RuntimeError(f"phase 14a: a batch row differs from its command alone by {batch_err}")
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    logr = fleet(cmds, WB_FLEET_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    counts = read_counts()
+    check_counts(counts, physics_only_counts(WB_FLEET_STEPS), "14a")
+    for f in ("gc", "gv", "action", "solve_cost"):
+        if not torch.isfinite(getattr(logr, f)).all():
+            raise RuntimeError(f"phase 14a: non-finite {f}")
+    falls = int(logr.done.sum())
+    ms = wall / WB_FLEET_STEPS * 1e3
+    ops = _loop_sites(ops_per_step_by_site(lambda n: fleet(cmds, n), WB_LOOP_SITES))
+    steady = _wb_steady(cfg, mc, cmds)
+    steady["ms_by_site"] = _loop_sites(steady["ms_by_site"])
+    flops = (wb_flops("frozen", False, WB_FLEET_B, mc.horizon, mc.n_iter, mc.n_alphas,
+                      relin_every=mc.relin_every)
+             + WB_FLEET_B * phys_ops_per_env(8, pd_law=True))
+    # a control step reads and writes each robot's state and plan, and reads its command
+    nbytes = 4 * WB_FLEET_B * (2 * (37 + mc.horizon * 12) + 3)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    busy = steady["device_busy"]
+    log(f"[14a] fleet of {WB_FLEET_B} x {WB_FLEET_STEPS} control steps in {wall:.1f} s: {ms:.1f} "
+        f"ms a control step, {WB_FLEET_B * WB_FLEET_STEPS / wall:.1f} controller-steps/s; falls "
+        f"{falls}; peak memory {peak / 2 ** 20:.1f} MiB; bound {b_ms:.4f} ms a step ({b_by}: "
+        f"{flops / 1e9:.3f} GFLOP)")
+    log(f"[14a] steady state: {steady['ms']:.1f} ms a step, device busy "
+        f"{'not measured' if busy is None else f'{busy:.4f}'} ({steady['device_ms']:.2f} ms); "
+        "ms by site " + ", ".join(f"{k} {v:.1f}" for k, v in steady["ms_by_site"].items())
+        + "; PyTorch ops by site " + ", ".join(f"{k} {v}" for k, v in ops.items()))
+    return {"wall_s": wall, "ms_per_step": ms,
+            "controller_steps_per_s": WB_FLEET_B * WB_FLEET_STEPS / wall, "falls": falls,
+            "peak_memory_bytes": peak, "launches": counts, "batch_vs_single_gc": batch_err,
+            "torch_ops_per_step": ops, "steady": steady, "bound_ms": b_ms, "bound_by": b_by,
+            "flops_per_step": flops}
+
+
+def _first_above(err: np.ndarray, limit: float):
+    hit = np.nonzero(err > limit)[0]
+    return int(hit[0]) if len(hit) else None
+
+
+def phase_wb_track() -> dict:
+    """(b) cli.mpc --engine wb at cmd 1-5 for WB_TRACK_STEPS steps per
+    schedule batch, held to the JAX lanes and per-env loops."""
+    cmds = [float(c) for c in WB_TRACK_COMMANDS.split(",")]
+    batches = list(cli_mpc.schedule_batches(config.test_default(), cmds, "wb").values())
+    argv = ["--engine", "wb", "--commands", WB_TRACK_COMMANDS, "--steps", str(WB_TRACK_STEPS),
+            "--device", DEVICE]
+    logs, saved = [], mpc_runtime.wb_mpc_rollout
+
+    def kept(*a, **kw):
+        logs.append(saved(*a, **kw))
+        return logs[-1]
+    reset_counts()
+    mpc_runtime.wb_mpc_rollout = kept
+    try:
+        t0 = time.perf_counter()
+        res = cli_mpc.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        mpc_runtime.wb_mpc_rollout = saved
+    counts = read_counts()
+    check_counts(counts, physics_only_counts(WB_TRACK_STEPS * len(batches)), "14b")
+    gc = {vx: lg.gc[:, b].cpu().numpy() for vxs, lg in zip(batches, logs)
+          for b, vx in enumerate(vxs)}
+    failed, rows = [], []
+    for r in res["rows"]:
+        vx, want = r["command"], JAX_WB_TABLE[r["command"]]
+        jb = np.asarray(JAX_WB_BASES[vx])[:len(gc[vx])]
+        d = np.abs(gc[vx][:len(jb), :3] - jb).max(axis=1)
+        base_err = float(d[:WB_BASE_ROWS].max())
+        v_tol = max(WB_V_TOL, 2 * want["nudge_spread"])
+        row = {**r, "base_err": base_err, "bases_first_above_1e-3": _first_above(d, 1e-3),
+               "v_tol": v_tol, "jax": want}
+        rows.append(row)
+        log(f"[14b] cmd {vx:.0f}: v {r['v_mean']:.4f} (JAX lanes {want['v_lanes']:.4f}, diff "
+            f"{r['v_mean'] - want['v_lanes']:+.4f}; JAX per-env {want['v_per_env']:.4f}, diff "
+            f"{r['v_mean'] - want['v_per_env']:+.4f}; JAX's nudge spread "
+            f"{want['nudge_spread']:.4f}, limit {v_tol:.4f}), falls {r['falls']} "
+            f"(JAX lanes {want['falls_lanes']}, per-env {want['falls_per_env']}); bases over "
+            f"{WB_BASE_ROWS} steps within {base_err:.3g} of JAX lanes (limit {WB_BASE_ATOL:g}), "
+            f"first above 1e-3 at step {row['bases_first_above_1e-3']} of {len(jb)}; solve cost "
+            f"~{r['solve_cost']:.2f} (JAX lanes mean {want['cost_lanes']:.2f}); "
+            f"T={r['period']:.2f}")
+        if (not base_err <= WB_BASE_ATOL or r["falls"] != want["falls_lanes"]
+                or not abs(r["v_mean"] - want["v_lanes"]) <= v_tol
+                or not abs(r["v_mean"] - want["v_per_env"]) <= v_tol):
+            failed.append(vx)
+    n = WB_TRACK_STEPS * len(batches)
+    log(f"[14b] {WB_TRACK_STEPS} control steps x {len(batches)} schedule batches in {wall:.1f} s: "
+        f"{wall / n * 1e3:.1f} ms a control step of a batch")
+    if failed:
+        raise RuntimeError(f"phase 14b: commands {failed} miss the JAX loops (see the log)")
+    return {"rows": rows, "wall_s": wall, "ms_per_step": wall / n * 1e3, "groups": len(batches),
+            "launches": counts}
+
+
+def phase_wb_parity(params) -> dict:
+    """(c) mpc_vs_bp5 at cmd 1: the solve from JAX's start (its warm start held
+    to JAX's, its final cost recorded), then the function end to end against
+    JAX's mae and torque_mae."""
+    cfg = ev._fixed_command_cfg(config.test_default())
+    mc = trot.MPCConfig(horizon=50)
+    x0 = torch.tensor([JAX_MPC_VS_BP5_X0], dtype=torch.float32, device=DEVICE)
+    prob = trot.make_problem(cfg, x0[:, :19], x0[:, 19:],
+                             torch.tensor([[1.0, 0.0, 0.0]], device=DEVICE),
+                             torch.tensor([200 * cfg.control_dt], device=DEVICE), mc.horizon)
+    params_n = mdl.nominal_params(cfg, DEVICE)
+    warm = float(trot.solve(cfg, dataclasses.replace(mc, n_iter=0), params_n, prob).cost[0])
+    t0 = time.perf_counter()
+    sol = trot.solve(cfg, mc, params_n, prob)
+    solve_s = time.perf_counter() - t0
+    trace = sol.cost_trace[0].double().tolist()
+    cost = trace[-1]
+    warm_rel = abs(warm / JAX_MPC_VS_BP5["warm_cost"] - 1)
+    cost_rel = abs(cost / JAX_MPC_VS_BP5["cost"] - 1)
+    log(f"[14c] the solve from JAX's start ({solve_s:.1f} s): warm start {warm:.4f} (JAX "
+        f"{JAX_MPC_VS_BP5['warm_cost']:.4f}, {warm_rel:.3g} off; limit {WB_WARM_RTOL:g}); final "
+        f"cost {cost:.4f} (JAX {JAX_MPC_VS_BP5['cost']:.4f}, {cost_rel:.3g} off, recorded: a "
+        f"1e-6 m nudge moves JAX's by {JAX_MPC_VS_BP5_SPREAD['cost']:.3g}); trace "
+        f"{[round(c, 3) for c in trace]}")
+    failed = []
+    if not warm_rel <= WB_WARM_RTOL:
+        failed.append("the warm start from JAX's start")
+    if not (all(b <= a * (1 + 1e-6) for a, b in zip([warm] + trace, trace))
+            and np.isfinite(trace).all()):
+        failed.append("the solve from JAX's start does not descend")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = parity.mpc_vs_bp5(config.test_default(), params, 1.0, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(counts, rollout_counts(200 + 50 + 1), "14c")
+    got = {"mae": res.mae, "torque_mae": res.torque_mae}
+    for k, v in got.items():
+        want, tol = JAX_MPC_VS_BP5[k], max(MPC_VS_BP5_ATOL, 2 * JAX_MPC_VS_BP5_SPREAD[k])
+        log(f"[14c] mpc_vs_bp5 cmd 1 ({wall:.1f} s): {k} {v:.5f} (JAX {want:.5f}, diff "
+            f"{v - want:+.3g}; limit {tol:.3g})")
+        if not abs(v - want) <= tol:
+            failed.append(k)
+    if failed:
+        raise RuntimeError(f"phase 14c: {failed}")
+    return {**got, "warm_from_jax": warm, "warm_from_jax_rel": warm_rel,
+            "solve_from_jax_cost": cost, "solve_from_jax_rel": cost_rel,
+            "solve_from_jax_trace": trace, "solve_from_jax_s": solve_s, "wall_s": wall,
+            "launches": counts}
+
+
+def phase_wb_terrain() -> dict:
+    """(d) the terrain-model loop: finite, upright, one physics launch a step;
+    bases against the JAX lanes loop's recorded."""
+    env, mc = mpc_runtime.wb_speed_schedule(config.test_default(), 1.0)
+    env = env.replace(terrain=True, terrain_z_scale=WB_TERRAIN_Z)
+    reset_counts()
+    t0 = time.perf_counter()
+    logr = mpc_runtime.wb_mpc_rollout(env, mc, np.array([1.0, 0.0, 0.0], np.float32),
+                                      torch.Generator(device=DEVICE), WB_TERRAIN_STEPS,
+                                      terrain_model=True, device=DEVICE,
+                                      terrain_offset=np.array([JAX_WB_TERRAIN["offset"]]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(counts, physics_only_counts(WB_TERRAIN_STEPS), "14d")
+    gc = logr.gc.cpu().numpy()
+    d = np.abs(gc[:, :3] - np.asarray(JAX_WB_TERRAIN["bases"])).max(axis=1)
+    upright = bool(np.isfinite(gc).all() and torch.isfinite(logr.solve_cost).all()
+                   and (gc[:, 2] > 0.2).all() and (gc[:, 2] < 0.5).all()
+                   and not logr.done.any())
+    log(f"[14d] terrain model, {WB_TERRAIN_STEPS} steps in {wall:.1f} s: finite and upright "
+        f"{upright}; bases against the JAX lanes loop's: first step {d[0]:.3g}, all "
+        f"{d.max():.3g}; first above 1e-3 at step {_first_above(d, 1e-3)}")
+    if not upright:
+        raise RuntimeError("phase 14d: the terrain-model loop is not finite and upright")
+    return {"first_step_base_err": float(d[0]), "base_err": d.tolist(), "wall_s": wall,
+            "launches": counts}
+
+
+def wb_worker(out_path: str) -> int:
+    """Phase 14 on its own, its records written to ``out_path``. The main run
+    starts this in a second process alongside phases 9-13 (host-bound loops
+    of one Python thread each, the card mostly idle), so the script stays
+    inside its time limit; each path's launches are counted in this process,
+    around its own run."""
+    params = mio.load_bp5_csv(ARTIFACT, device=DEVICE)
+    seconds, rec = {}, {}
+    for name, fn, args in (("14a", phase_wb_fleet, ()), ("14b", phase_wb_track, ()),
+                           ("14c", phase_wb_parity, (params,)), ("14d", phase_wb_terrain, ())):
+        t0 = time.perf_counter()
+        rec[name] = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f"[{name}] {seconds[name]:.1f} s (second process)")
+    with open(out_path, "w") as f:
+        json.dump({**rec, "seconds": seconds}, f, default=str)
+    return 0
+
+
+class _WBWorker:
+    """The second process of :func:`wb_worker`: started on entry, waited for
+    by :meth:`result`, killed if the main run leaves before that."""
+
+    def __enter__(self):
+        self.path = os.path.join(ROOT, "build", f"chip_smoke_wb_{os.getpid()}.json")
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                      "--wb-worker", self.path])
+        return self
+
+    def result(self) -> dict:
+        if self.proc.wait() != 0:
+            raise RuntimeError(f"phase 14: the second process exited {self.proc.returncode}")
+        with open(self.path) as f:
+            return json.load(f)
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if os.path.exists(self.path):
+            os.remove(self.path)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU")
     ap.add_argument("--out", default=None, help="also write all measurements to this JSON file")
-    out_path = ap.parse_args(argv).out
+    ap.add_argument("--wb-worker", default=None, metavar="PATH",
+                    help="run only phase 14 and write its records to PATH (the main run starts "
+                    "this itself)")
+    args = ap.parse_args(argv)
+    out_path = args.out
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA GPU",
               file=sys.stderr)
         return 1
-    smi = phase_environment()
-    build = phase_build()
-    kern = phase_kernels()
-    serving = phase_serving()
+    if args.wb_worker:
+        return wb_worker(args.wb_worker)
+    start, seconds = time.perf_counter(), {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f"[{name}] {seconds[name]:.1f} s; {time.perf_counter() - start:.1f} s in all")
+        return out
+    smi = run("1", phase_environment)
+    build = run("2", phase_build)
+    kern = run("3", phase_kernels)
+    serving = run("4", phase_serving)
     params = mio.load_bp5_csv(ARTIFACT, device=DEVICE)
-    full = phase_full_width(params, {
+    full = run("5", phase_full_width, params, {
         "phys_substep": kern["phys_substep"]["ms"],
         "lstm_cell": statistics.mean(p["ms"] for p in kern["lstm_cell"]["per_launch"].values())})
-    bptt = phase_bptt()
-    training = phase_training()
-    solve = phase_batched_solve()
-    mpc = phase_mpc()
-    terrain_eval = phase_terrain_eval()
-    terrain_training = phase_terrain_training()
-    parity_rec = phase_parity(params)
-    wholebody = phase_wholebody()
+    bptt = run("6", phase_bptt)
+    training = run("7", phase_training)
+    solve = run("8", phase_batched_solve)
+    with _WBWorker() as worker:   # phase 14 alongside phases 9-13
+        mpc = run("9", phase_mpc)
+        terrain_eval = run("10", phase_terrain_eval)
+        terrain_training = run("11", phase_terrain_training)
+        parity_rec = run("12", phase_parity, params)
+        wholebody = run("13", phase_wholebody)
+        wb = run("14", worker.result)
+    wb_fleet, wb_track, wb_parity, wb_terrain = wb["14a"], wb["14b"], wb["14c"], wb["14d"]
+    seconds.update({f"{k} (second process)": v for k, v in wb["seconds"].items()})
 
     # entry: the kernel function that `launches` counts and the record's times read; path:
     # the main path that launches it, whose own run `launches` was read after. An entry the
@@ -2384,7 +2933,9 @@ def main(argv=None) -> int:
     runs = {"serving": serving, "full_width": full, "training": training, "mpc": mpc,
             "terrain_eval": terrain_eval, "terrain_training": terrain_training,
             "parity": parity_rec, "wb_dense": wholebody["dense_frozen"],
-            "wb_lanes_frozen": wholebody["lanes_frozen"], "wb_lanes_fd": wholebody["lanes_fd"]}
+            "wb_lanes_frozen": wholebody["lanes_frozen"], "wb_lanes_fd": wholebody["lanes_fd"],
+            "wb_fleet": wb_fleet, "wb_track": wb_track, "mpc_vs_bp5": wb_parity,
+            "wb_terrain": wb_terrain}
     extras = ("shape", "per_launch", "call_ms", "plain_call_ms", "library_call_ms", "substep_ms",
               "substep_plain_ms", "substep_bound_ms", "substep_bound_by", "substep_max_abs_err",
               "c2t_ms", "c2t_pd_path_ms", "c2t_bound_ms", "c2t_bound_by", "c2t_max_abs_err",
@@ -2413,7 +2964,9 @@ def main(argv=None) -> int:
                        "full_width": full, "bptt": bptt, "training": training,
                        "batched_solve": solve, "mpc": mpc, "terrain_eval": terrain_eval,
                        "terrain_training": terrain_training, "parity": parity_rec,
-                       "wholebody": wholebody}, f, indent=1,
+                       "wholebody": wholebody, "wb_fleet": wb_fleet, "wb_track": wb_track,
+                       "wb_parity": wb_parity, "wb_terrain": wb_terrain,
+                       "seconds_by_phase": seconds}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))
     print(smi)

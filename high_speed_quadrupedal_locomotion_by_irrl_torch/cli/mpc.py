@@ -2,15 +2,21 @@
 
     python -m high_speed_quadrupedal_locomotion_by_irrl_torch.cli.mpc \
         --engine srb --commands 1,2,3,4,5 --steps 2500
+    python -m high_speed_quadrupedal_locomotion_by_irrl_torch.cli.mpc \
+        --engine wb --commands 1,2,3,4,5 --steps 2500
 
-Port of the JAX package's ``cli/mpc.py`` for the convex SRB trot-MPC: each
-command runs its speed-scheduled configuration (``mpc/runtime.speed_schedule``)
-in closed loop, on the card (``--device cuda``, the default) or on the CPU
-(``--device cpu``). Commands that share a schedule roll as one batch of envs.
-Prints the steady-state body velocity (trailing 40 % of the rollout), the fall
-count and the mean solve cost of the last 100 steps per command; ``--dump-info``
-writes the last command's rollout as the reference's info CSV. The whole-body
-engine (``--engine wb``) and the viewer export raise ``NotImplementedError``.
+Port of the JAX package's ``cli/mpc.py``: each command runs its
+speed-scheduled configuration in closed loop, the convex SRB trot-MPC
+(``--engine srb``, ``mpc/runtime.speed_schedule``) or the whole-body
+receding-horizon iLQR (``--engine wb``, ``mpc/runtime.wb_speed_schedule``;
+rollouts beyond 1200 steps through ``wb_mpc_rollout_chunked`` in 500-step
+segments, as the JAX CLI), on the card (``--device cuda``, the default) or on
+the CPU (``--device cpu``). Commands that share a schedule roll as one batch
+of envs. Prints the steady-state body velocity (trailing 40 % of the
+rollout), the fall count and the mean solve cost of the last 100 steps per
+command; ``--dump-info`` writes the last command's rollout as the reference's
+info CSV (the whole-body log has no torque: written as zeros, as the JAX CLI
+does). The viewer export raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
 
 def parse_args(argv):
     p = argparse.ArgumentParser(description="closed-loop MPC control in the BlackPanther "
-                                "env (PyTorch port: SRB trot-MPC)")
+                                "env (PyTorch port: SRB trot-MPC or whole-body iLQR)")
     p.add_argument("--engine", choices=("srb", "wb"), default="srb")
     p.add_argument("--vx", type=float, default=None, help="single forward-velocity command [m/s]")
     p.add_argument("--commands", type=str, default=None,
@@ -57,26 +63,41 @@ def toe_contact(gc: torch.Tensor) -> torch.Tensor:
     return (z < mdl.TOE_RADIUS + 1e-3).to(gc.dtype)
 
 
-def schedule_batches(cfg, cmds) -> dict:
-    """{(env_cfg, SRBConfig, mpc_rollout kwargs): [vx, ...]}: the commands that
-    share one speed schedule, which roll as one batch, in order of first
-    appearance."""
+def schedule_batches(cfg, cmds, engine: str = "srb") -> dict:
+    """{schedule: [vx, ...]}: the commands that share one speed schedule, which
+    roll as one batch, in order of first appearance. A schedule is
+    (env_cfg, SRBConfig, mpc_rollout kwargs) for the SRB engine and
+    (env_cfg, MPCConfig) for the whole-body one."""
     groups: dict = {}
     for vx in cmds:
-        env_cfg, scfg, kwargs = runtime.speed_schedule(cfg, vx)
-        groups.setdefault((env_cfg, scfg, tuple(kwargs.items())), []).append(vx)
+        if engine == "srb":
+            env_cfg, scfg, kwargs = runtime.speed_schedule(cfg, vx)
+            key = (env_cfg, scfg, tuple(kwargs.items()))
+        else:
+            key = runtime.wb_speed_schedule(cfg, vx)
+        groups.setdefault(key, []).append(vx)
     return groups
+
+
+def _rollout(engine: str, schedule, batch: np.ndarray, gen, n_steps: int, device):
+    """The rollout of one schedule batch: a log of (T, B, ...) fields."""
+    if engine == "srb":
+        env_cfg, scfg, kwargs = schedule
+        return runtime.mpc_rollout(env_cfg, scfg, batch, gen, n_steps, device=device,
+                                   **dict(kwargs))
+    env_cfg, mpc_cfg = schedule
+    if n_steps > 1200:   # the JAX CLI's crash-safe harness for long rollouts, physics unchanged
+        log = runtime.wb_mpc_rollout_chunked(env_cfg, mpc_cfg, batch, gen, n_steps, chunk=500,
+                                             device=device)
+        return runtime.WBMPCRolloutLog(*(torch.from_numpy(x) for x in log))
+    return runtime.wb_mpc_rollout(env_cfg, mpc_cfg, batch, gen, n_steps, device=device)
 
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.engine == "wb":
-        raise NotImplementedError("--engine wb is not in the PyTorch port yet: the batched "
-                                  "whole-body iLQR solvers are (mpc/trot.py); its receding-"
-                                  "horizon loop is ROADMAP.md Queue 1 item 1c")
     if args.viewer:
-        raise NotImplementedError("--viewer is not in the PyTorch port yet (ROADMAP.md, "
-                                  "Queue 1: analysis and tooling, analysis/viewer.py)")
+        raise NotImplementedError("--viewer is not in the PyTorch port yet: ROADMAP.md Queue 1 "
+                                  "item 6 (analysis and tooling, analysis/viewer.py)")
     device = dev_mod.resolve(args.device)
     cfg = cfg_mod.from_yaml(args.cfg) if args.cfg else cfg_mod.test_default()
     if args.commands:
@@ -87,10 +108,10 @@ def main(argv=None):
     gen = torch.Generator(device=device).manual_seed(args.seed)
     print(f"engine={args.engine} steps={args.steps} (500 Hz control)")
     rows, last = {}, None
-    for (env_cfg, scfg, kwargs), vxs in schedule_batches(cfg, cmds).items():
+    for schedule, vxs in schedule_batches(cfg, cmds, args.engine).items():
+        env_cfg = schedule[0]
         batch = np.array([[vx, 0.0, 0.0] for vx in vxs], np.float32)
-        log = runtime.mpc_rollout(env_cfg, scfg, batch, gen, args.steps, device=device,
-                                  **dict(kwargs))
+        log = _rollout(args.engine, schedule, batch, gen, args.steps, device)
         vb = ev.body_velocity(log)[int(args.steps * 0.6):]          # (T', B, 3)
         falls = log.done.sum(dim=0).cpu().numpy()
         cost = log.solve_cost[-100:].mean(dim=0).cpu().numpy()
@@ -108,8 +129,9 @@ def main(argv=None):
     if args.dump_info:
         log, b = last
         gc = log.gc[:, b]
+        tau = log.torque[:, b] if hasattr(log, "torque") else torch.zeros_like(gc[:, 7:])
         rawdata.dump_robot_info(args.dump_info, gc.cpu().numpy(), log.gv[:, b].cpu().numpy(),
-                                log.torque[:, b].cpu().numpy(), toe_contact(gc).cpu().numpy())
+                                tau.cpu().numpy(), toe_contact(gc).cpu().numpy())
         print(f"robot-info CSV: {args.dump_info}")
         results["dump_info"] = args.dump_info
     return results

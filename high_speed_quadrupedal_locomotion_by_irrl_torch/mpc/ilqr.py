@@ -149,15 +149,17 @@ def _trace(trace: list, cost: torch.Tensor) -> torch.Tensor:
     return torch.stack(trace, dim=1) if trace else cost[:, None][:, :0]
 
 
-class _Replayed:
+class Replayed:
     """``fn`` on CUDA tensors run as a CUDA graph: captured at the first call
     with each set of input shapes, then replayed with the inputs copied in and
     the outputs copied out (the next replay overwrites the graph's own). A
     linearizer is called T / chunk times an iteration at one shape, and each
     call is thousands of small PyTorch ops (forward-mode AD through a model
     step) that the host would otherwise issue again. What ``fn`` reads besides
-    its arguments (a robot, constants) must not change between calls. CPU
-    tensors run ``fn`` itself."""
+    its arguments (a robot, a terrain, constants) must not change between
+    calls. The graphs live as long as the object: a receding-horizon loop
+    wraps its linearizer once and hands the same object to every solve, so
+    it captures once a shape and rollout. CPU tensors run ``fn`` itself."""
 
     def __init__(self, fn: Callable):
         self.fn, self.graphs = fn, {}
@@ -256,8 +258,12 @@ def solve(dynamics: Callable, cost_fn: Callable, term_cost_fn: Callable,
     ``(X (C, B, n), U (C, B, m)) -> (A (C, B, n, n), B (C, B, n, m))`` in place
     of forward-mode AD through ``dynamics`` (e.g. the frozen-operator
     surrogate of :mod:`.linearize`; time-invariant dynamics only); on the card
-    it is replayed from a CUDA graph (:class:`_Replayed`)."""
-    lin = None if linearize_fn is None else _Replayed(linearize_fn)
+    it is replayed from a CUDA graph: a :class:`Replayed` is used as given
+    (its graphs kept across solves), any other provider is wrapped in a new
+    one for this solve."""
+    lin = linearize_fn
+    if lin is not None and not isinstance(lin, Replayed):
+        lin = Replayed(lin)
     return _solve(dynamics, cost_fn, term_cost_fn, x0, u_init, n_iter, reg, linearize_chunk,
                   n_alphas, relin_every, lin)
 
@@ -340,7 +346,7 @@ def solve_batch(dynamics_b: Callable, cost_fn: Callable, term_cost_fn: Callable,
 
     flat = None
     if linearize_b is not None:
-        flat = _Replayed(linearize_b)
+        flat = Replayed(linearize_b)
     elif fd_eps > 0.0:
         flat = lambda X, U: _jacobian_fd(dynamics_b, X, U, fd_eps)  # noqa: E731
 

@@ -130,11 +130,8 @@ def _u_init(cfg: EnvConfig, probs: TrotProblem) -> torch.Tensor:
     return probs.joint_refs - _model_consts(cfg, probs.x0.device)[0]
 
 
-def solve(cfg: EnvConfig, mpc_cfg: MPCConfig, params: mdl.RobotParams,
-          prob: TrotProblem) -> ilqr.ILQRResult:
-    """The B problems of ``prob`` on the dense physics; ``params`` one robot
-    for all, or (B, ...) per problem."""
-    dynamics = make_dynamics(cfg, mpc_cfg, params)
+def cost_fns(cfg: EnvConfig, mpc_cfg: MPCConfig, prob: TrotProblem):
+    """(stage cost, terminal cost) of ``prob`` in ``ilqr.solve``'s form."""
     w = mpc_cfg.weights
     command = prob.command[:, None, :]
 
@@ -145,7 +142,15 @@ def solve(cfg: EnvConfig, mpc_cfg: MPCConfig, params: mdl.RobotParams,
     def term_fn(x):
         return mcost.terminal_cost(cfg, w, x, prob.joint_ref_T, prob.command)
 
-    return ilqr.solve(dynamics, cost_fn, term_fn, prob.x0, _u_init(cfg, prob),
+    return cost_fn, term_fn
+
+
+def solve(cfg: EnvConfig, mpc_cfg: MPCConfig, params: mdl.RobotParams,
+          prob: TrotProblem) -> ilqr.ILQRResult:
+    """The B problems of ``prob`` on the dense physics; ``params`` one robot
+    for all, or (B, ...) per problem."""
+    dynamics = make_dynamics(cfg, mpc_cfg, params)
+    return ilqr.solve(dynamics, *cost_fns(cfg, mpc_cfg, prob), prob.x0, _u_init(cfg, prob),
                       n_iter=mpc_cfg.n_iter, linearize_chunk=mpc_cfg.linearize_chunk,
                       n_alphas=mpc_cfg.n_alphas, relin_every=mpc_cfg.relin_every,
                       linearize_fn=make_linearize_fn(cfg, mpc_cfg, params))

@@ -523,7 +523,7 @@ def test_wrappers_refuse_bad_cuda_input(cuda):
 
 
 def test_replayed_linearizer_matches_its_eager_calls(cuda):
-    """The frozen linearizer replayed from a CUDA graph (``ilqr._Replayed``,
+    """The frozen linearizer replayed from a CUDA graph (``ilqr.Replayed``,
     as the iLQR solvers run it on the card) against the same function issued
     op by op, at three knots' inputs of one shape: the same kernels, so
     within float32 rounding of the largest entry (1e-6)."""
@@ -532,7 +532,7 @@ def test_replayed_linearizer_matches_its_eager_calls(cuda):
     cfg = config.test_default()
     params = mdl.nominal_params(cfg, device=cuda)
     lin = linearize.make_frozen_linearizer(cfg, trot.MPCConfig(), params)
-    replayed = ilqr._Replayed(lin)
+    replayed = ilqr.Replayed(lin)
     x0 = trot.standing_x0(cfg, cuda)
     gen = torch.Generator(device=cuda).manual_seed(0)
     for _ in range(3):

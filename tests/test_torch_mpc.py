@@ -228,8 +228,6 @@ def test_cli_mpc_contact_flags_match_jax_fk():
 
 
 def test_cli_mpc_raises_for_what_is_not_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="whole-body iLQR"):
-        tcli.main(["--engine", "wb", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="viewer"):
         tcli.main(["--vx", "1", "--viewer", os.devnull, "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
