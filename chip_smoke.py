@@ -90,7 +90,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 14. the whole-body receding-horizon loop (``mpc/runtime.wb_*``, the env step
    ``step_batch``: one physics launch a control step, asserted): (a) the
    fleet at bench.py's ``_bench_wb_rh`` configuration (128 robots x h16, 2
-   iterations, linearize_chunk 16, relin_every 2) for 50 control steps, a
+   iterations, linearize_chunk 16, relin_every 2) for 25 control steps, a
    batch row against its command alone, controller-steps/s, falls, peak
    memory, the bound, and PyTorch ops, ms and the device's busy share of a
    control step split into dense model steps, linearizer replays, Riccati,
@@ -100,9 +100,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    falls); (c) ``analysis.parity.mpc_vs_bp5`` at cmd 1 (through both
    kernels), its solve from JAX's start held to JAX's cost and mae /
    torque_mae to JAX's; (d) a 25-step ``terrain_model=True`` loop on the
-   sampled heightmap, finite and upright. Phase 14 runs in a second process
-   (``--wb-worker``), (a) first, alongside phases 9-13, whose loops, like
-   its own, are host-bound on one Python thread with the card mostly idle.
+   sampled heightmap, finite and upright. Phases 14, 15 and 10-12 run in that
+   order in a second process (``--side-worker``) alongside phases 7-9 and 13,
+   whose loops, like theirs, are host-bound on one Python thread with the
+   card mostly idle;
+15. the per-env control step (``envs.blackpanther.step``: the dense per-env
+   physics in plain PyTorch, no physics launch, asserted; ``--perenv-worker
+   PATH`` runs this phase alone): (a) the flagship at cmd 1-5
+   under hard contact (``scripts/hard_contact_eval.py``'s protocol) and (b)
+   under the meteorite attacks, each as one batch of
+   ``analysis.eval.policy_rollout``, held to the JAX package's evaluation on the
+   CPU (bases over 15 steps, speed, falls; 2 LSTM pair launches a step); (c)
+   ``cli.train`` on ``configs/bp5_train.yaml`` at its 200 envs, which JAX's
+   rule puts on the per-env path, then one update of a copy with
+   ``HardContact`` and ``Crutial``: the launch counts, finite metrics, the loss
+   falling within each update, every parameter changed; (d) ``algo.ppo3.PPO3``
+   over ``envs.vec.NumpyVecEnv`` at 200 envs with the flagship's LSTM, then
+   with ``MlpPolicy`` through PPO3 and ``ppo.learn`` (no LSTM launch); (e)
+   ``step`` (compliant and hard) against ``step_batch`` at 200 and 1024 envs:
+   ms, PyTorch ops and synchronized ms a control step by site, busy share,
+   peak memory (recorded).
 
 Phase 3 also holds the control step with its Convert2Torque inputs (a torque
 feedforward and a PD scale) against its plain loop, at the closed loop's
@@ -138,10 +155,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from high_speed_quadrupedal_locomotion_by_irrl_torch import config
-from high_speed_quadrupedal_locomotion_by_irrl_torch.algo import ppo
+from high_speed_quadrupedal_locomotion_by_irrl_torch.algo import ppo, ppo3
 from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import eval as ev
 from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import parity
 from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import blackpanther as bp
+from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import vec
 from high_speed_quadrupedal_locomotion_by_irrl_torch.cli import mpc as cli_mpc
 from high_speed_quadrupedal_locomotion_by_irrl_torch.cli import test as cli_test
 from high_speed_quadrupedal_locomotion_by_irrl_torch.cli import train as cli_train
@@ -155,6 +173,8 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import (
     _build, lstm_cuda, pd_torque, phys_cuda,
 )
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as lanes
+from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import dynamics as dyn
+from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import hard_contact
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import terrain
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import metrics as metrics_io
@@ -196,7 +216,7 @@ DEVICE = "cuda"
 # 10 epochs of one minibatch); only the number of updates is cut
 TRAIN_CFG = os.path.join(ROOT, "high_speed_quadrupedal_locomotion_by_irrl_torch", "configs",
                          "bp5_train.yaml")
-TRAIN_UPDATES, TRAIN_STEPS, TRAIN_EPOCHS = 3, 750, 10
+TRAIN_UPDATES, TRAIN_STEPS, TRAIN_EPOCHS = 2, 750, 10
 TRAIN_LOG_DIR = os.path.join(ROOT, "runs", "chip_smoke")
 BPTT_STEPS = 32      # the plain path's autograd graph at 750 steps would not be a fair use of memory
 BWD_TIMING_STEPS = 8  # a short sequence: all but its last step's launch read what a step of BPTT reads
@@ -512,9 +532,9 @@ MPC_SUBSTEP_RTOL = 1e-4
 # fixed before the phase's first run on the H100.
 # (a) the fleet at bench.py's _bench_wb_rh (bench.py:214-245): 128 robots, horizon 16, 2
 # iterations, linearize_chunk 16, the Jacobians of every 2nd iteration, the frozen
-# linearizer, commands 0.5 + 2.5 (i % 8) / 7; 50 control steps where bench.py takes 100
+# linearizer, commands 0.5 + 2.5 (i % 8) / 7; 25 control steps where bench.py takes 100
 # (the only cut)
-WB_FLEET_B, WB_FLEET_STEPS = 128, 50
+WB_FLEET_B, WB_FLEET_STEPS = 128, 25
 WB_FLEET_MC = dict(horizon=16, n_iter=2, model_substeps=2, linearize_chunk=16, n_alphas=4,
                    relin_every=2, linearizer="frozen")
 # row 1 of a 2-command batch against that command alone over 10 steps: gc within 1e-4
@@ -719,6 +739,151 @@ JAX_WB_TERRAIN = {"offset": [52.9175262, 5.82514], "falls": 0, "bases": [[1.2677
                   -8.27338226e-06, 0.309663475], [0.00104495161, -8.29681085e-06, 0.308769345],
                   [0.00105331501, -8.01133592e-06, 0.307866067], [0.00105094758, -7.41878512e-06,
                   0.306953937], [0.00103802967, -6.54481209e-06, 0.306031972]]}
+
+# phase 15: the per-env control step (envs.blackpanther.step: the dense per-env physics, plain
+# PyTorch, no physics launch). Every limit below was fixed before the phase's first run on the
+# H100. (a) and (b) follow scripts/hard_contact_eval.py: the flagship under test_default() with
+# terrain off, cmd 1-5 as one batch of analysis.eval.policy_rollout for PERENV_STEPS steps, (a)
+# with hard contact, (b) with the meteorite attacks on compliant contact; held to the JAX
+# package's analysis.eval under the same config on the CPU at the same length, produced by
+#   PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_perenv.py refs <PERENV_STEPS>
+# per command: the trailing-40 % forward speed, the falls, the largest move of the speed when
+# the start is 1e-6 m higher or lower (nudge_spread) and the bases (gc[:3]) over the first
+# PERENV_BASE_ROWS steps. Held: bases within PERENV_BASE_ATOL, the speed within max(0.1 m/s,
+# 2 x the nudge spread) (phase 14's limits), falls equal, no physics launch and 2 LSTM pair
+# launches a step. N = 200 where the script takes 2000, cut to fit the time limit: a probe of
+# this phase alone (NVIDIA H100 80GB HBM3, 700 W; PERF.md) took 162 / 74 ms a step for (a) / (b),
+# twice that beside the other phases on a slow host.
+PERENV_STEPS = 200
+PERENV_BASE_ROWS, PERENV_BASE_ATOL, PERENV_V_TOL = 15, 2e-3, 0.1
+PERENV_COMMANDS = (1.0, 2.0, 3.0, 4.0, 5.0)
+JAX_PERENV = {
+    "hard": {
+        1.0: {"v": 0.8071326017379761, "falls": 0, "nudge_spread": 5.424022674560547e-06,
+            "bases": [[6.53190091e-06, -2.18788728e-07, 0.34999463], [2.12356099e-05,
+            -2.01056309e-06, 0.349975556], [3.917305e-05, -5.7732077e-06, 0.34993282],
+            [5.73094803e-05, -1.05709087e-05, 0.349856228], [7.51400803e-05, -1.56018759e-05,
+            0.349740714], [9.38089142e-05, -2.04953831e-05, 0.349584609], [0.000114844021,
+            -2.51595302e-05, 0.349386841], [0.000139272757, -2.9585879e-05, 0.349145383],
+            [0.00016737025, -3.37478996e-05, 0.34885776], [0.000198844675, -3.75860945e-05,
+            0.348521709], [0.00023313571, -4.10287357e-05, 0.348136008], [0.000269623823,
+            -4.40137119e-05, 0.347700268], [0.000307708164, -4.65017074e-05, 0.347215116],
+            [0.000346794695, -4.84826523e-05, 0.346681476], [0.000386251952, -4.99784583e-05,
+            0.346100777]]},
+        2.0: {"v": 1.2649306058883667, "falls": 0, "nudge_spread": 0.00017976760864257812,
+            "bases": [[8.38569576e-06, -1.16943681e-06, 0.349992037], [2.84213638e-05,
+            -5.11430881e-06, 0.349965006], [5.44193135e-05, -1.1880592e-05, 0.349908531],
+            [8.16068059e-05, -2.03770123e-05, 0.349813014], [0.00010813713, -2.9509245e-05,
+            0.349674195], [0.000134677117, -3.85420426e-05, 0.34949103], [0.000162943717,
+            -4.70730702e-05, 0.349262655], [0.000194440552, -5.48925018e-05, 0.348987103],
+            [0.000229934798, -6.18753329e-05, 0.348661929], [0.000269524084, -6.79349178e-05,
+            0.348285228], [0.000312900112, -7.30125103e-05, 0.347856313], [0.000359545753,
+            -7.70797051e-05, 0.347375631], [0.000408810214, -8.01431088e-05, 0.346844584],
+            [0.000459914474, -8.22481379e-05, 0.346265078], [0.000511944701, -8.34800812e-05,
+            0.345639348]]},
+        3.0: {"v": 1.3052444458007812, "falls": 0, "nudge_spread": 0.004602193832397461,
+            "bases": [[1.02790418e-05, -2.12980876e-06, 0.349989355], [3.58525176e-05,
+            -8.26256655e-06, 0.349954635], [7.03550977e-05, -1.80435964e-05, 0.349885911],
+            [0.000107183048, -3.02076805e-05, 0.349774927], [0.000142978068, -4.3447355e-05,
+            0.349618077], [0.000177802154, -5.67634197e-05, 0.349414051], [0.000213524487,
+            -6.95047274e-05, 0.349161357], [0.000252173049, -8.12718717e-05, 0.348857611],
+            [0.00029509567, -9.18136357e-05, 0.348500252], [0.000342854444, -0.000100961646,
+            0.348087728], [0.000395428389, -0.000108602559, 0.347619921], [0.00045241366,
+            -0.000114674498, 0.347098023], [0.000513132487, -0.000119173987, 0.346524268],
+            [0.000576683786, -0.000122162382, 0.345901489], [0.000641973282, -0.000123764708,
+            0.345233113]]},
+        4.0: {"v": 1.1890124082565308, "falls": 0, "nudge_spread": 0.002263188362121582,
+            "bases": [[1.21965468e-05, -3.11676126e-06, 0.349986792], [4.34297035e-05,
+            -1.1578978e-05, 0.34994483], [8.67140625e-05, -2.46079071e-05, 0.349865556],
+            [0.000133596375, -4.06740801e-05, 0.349743068], [0.000179151437, -5.82766806e-05,
+            0.349574506], [0.000222795832, -7.62769778e-05, 0.349357665], [0.000266527612,
+            -9.39155871e-05, 0.349089503], [0.000312878954, -0.000110687281, 0.348766387],
+            [0.000363746134, -0.000126215484, 0.348385096], [0.000420107972, -0.00014018103,
+            0.34794414], [0.000482191099, -0.000152307461, 0.347443998], [0.000549714139,
+            -0.000162381912, 0.346886665], [0.000622060092, -0.000170285522, 0.34627521],
+            [0.000698365096, -0.000176015164, 0.345613629], [0.000777548295, -0.000179683717,
+            0.34490639]]},
+        5.0: {"v": 1.0112911462783813, "falls": 0, "nudge_spread": 0.001634836196899414,
+            "bases": [[1.41833525e-05, -4.14430315e-06, 0.349984199], [5.13216328e-05,
+            -1.515638e-05, 0.349935174], [0.000103863669, -3.18868588e-05, 0.349846244],
+            [0.000161480319, -5.24689567e-05, 0.349714726], [0.000217615961, -7.51408734e-05,
+            0.349539101], [0.000271001743, -9.86361483e-05, 0.349316239], [0.00032376076,
+            -0.000122187223, 0.349040836], [0.000378937257, -0.000145306243, 0.348706931],
+            [0.000438950694, -0.000167553575, 0.348310024], [0.00050511508, -0.000188425081,
+            0.347848296], [0.000577838975, -0.000207343328, 0.347322732], [0.000657105236,
+            -0.00022367631, 0.346736878], [0.000742539123, -0.000236982232, 0.346095473],
+            [0.000833352504, -0.000247140415, 0.34540379], [0.000928451482, -0.000254269544,
+            0.344667464]]},
+    },
+    "crucial": {
+        1.0: {"v": 0.49996739625930786, "falls": 0, "nudge_spread": 1.2218952178955078e-06,
+            "bases": [[6.53190091e-06, -2.18788728e-07, 0.34999463], [2.12356099e-05,
+            -2.01056309e-06, 0.349975556], [3.917305e-05, -5.7732077e-06, 0.34993282],
+            [5.73094803e-05, -1.05709087e-05, 0.349856228], [7.51400803e-05, -1.56018759e-05,
+            0.349740714], [9.38089142e-05, -2.04953831e-05, 0.349584609], [0.000114844021,
+            -2.51595302e-05, 0.349386841], [0.000139272757, -2.9585879e-05, 0.349145383],
+            [0.00016737025, -3.37478996e-05, 0.34885776], [0.000198844675, -3.75860945e-05,
+            0.348521709], [0.00023313571, -4.10287357e-05, 0.348136008], [0.000269623823,
+            -4.40137119e-05, 0.347700268], [0.000307708164, -4.65017074e-05, 0.347215116],
+            [0.000346794695, -4.84826523e-05, 0.346681476], [0.000386251952, -4.99784583e-05,
+            0.346100777]]},
+        2.0: {"v": 1.069435715675354, "falls": 0, "nudge_spread": 3.5762786865234375e-06,
+            "bases": [[8.38569576e-06, -1.16943681e-06, 0.349992037], [2.84213638e-05,
+            -5.11430881e-06, 0.349965006], [5.44193135e-05, -1.1880592e-05, 0.349908531],
+            [8.16068059e-05, -2.03770123e-05, 0.349813014], [0.00010813713, -2.9509245e-05,
+            0.349674195], [0.000134677117, -3.85420426e-05, 0.34949103], [0.000162943717,
+            -4.70730702e-05, 0.349262655], [0.000194440552, -5.48925018e-05, 0.348987103],
+            [0.000229934798, -6.18753329e-05, 0.348661929], [0.000269524084, -6.79349178e-05,
+            0.348285228], [0.000312900112, -7.30125103e-05, 0.347856313], [0.000359545753,
+            -7.70797051e-05, 0.347375631], [0.000408810214, -8.01431088e-05, 0.346844584],
+            [0.000459914474, -8.22481379e-05, 0.346265078], [0.000511944701, -8.34800812e-05,
+            0.345639348]]},
+        3.0: {"v": 1.1976121664047241, "falls": 0, "nudge_spread": 4.0531158447265625e-06,
+            "bases": [[1.02790418e-05, -2.12980876e-06, 0.349989355], [3.58525176e-05,
+            -8.26256655e-06, 0.349954635], [7.03550977e-05, -1.80435964e-05, 0.349885911],
+            [0.000107183048, -3.02076805e-05, 0.349774927], [0.000142978068, -4.34473586e-05,
+            0.349618077], [0.000177802154, -5.67634233e-05, 0.349414051], [0.000213524487,
+            -6.95047347e-05, 0.349161357], [0.000252173049, -8.1271879e-05, 0.348857611],
+            [0.00029509567, -9.18136429e-05, 0.348500252], [0.000342854444, -0.000100961661,
+            0.348087728], [0.000395428389, -0.000108602573, 0.347619921], [0.00045241366,
+            -0.000114674513, 0.347098023], [0.000513132487, -0.000119174001, 0.346524268],
+            [0.000576683786, -0.000122162397, 0.345901489], [0.000641973282, -0.000123764738,
+            0.345233113]]},
+        4.0: {"v": 1.2379262447357178, "falls": 0, "nudge_spread": 5.841255187988281e-06,
+            "bases": [[1.21965468e-05, -3.11676126e-06, 0.349986792], [4.34297035e-05,
+            -1.1578978e-05, 0.34994483], [8.67140625e-05, -2.46079071e-05, 0.349865556],
+            [0.000133596375, -4.06740801e-05, 0.349743068], [0.000179151437, -5.82766806e-05,
+            0.349574506], [0.000222795832, -7.62769778e-05, 0.349357665], [0.000266527612,
+            -9.39155871e-05, 0.349089503], [0.000312878954, -0.000110687281, 0.348766387],
+            [0.000363746134, -0.000126215484, 0.348385096], [0.000420107972, -0.00014018103,
+            0.34794414], [0.000482191099, -0.000152307461, 0.347443998], [0.000549714139,
+            -0.000162381912, 0.346886665], [0.000622060092, -0.000170285522, 0.34627521],
+            [0.000698365096, -0.000176015164, 0.345613629], [0.000777548295, -0.000179683717,
+            0.34490639]]},
+        5.0: {"v": 1.138012170791626, "falls": 0, "nudge_spread": 6.079673767089844e-06,
+            "bases": [[1.41833525e-05, -4.14430315e-06, 0.349984199], [5.13216328e-05,
+            -1.515638e-05, 0.349935174], [0.000103863669, -3.18868588e-05, 0.349846244],
+            [0.000161480319, -5.24689567e-05, 0.349714726], [0.000217615961, -7.51408734e-05,
+            0.349539101], [0.000271001743, -9.86361483e-05, 0.349316239], [0.00032376076,
+            -0.000122187223, 0.349040836], [0.000378937257, -0.000145306243, 0.348706931],
+            [0.000438950694, -0.000167553575, 0.348310024], [0.00050511508, -0.000188425081,
+            0.347848296], [0.000577838975, -0.000207343328, 0.347322732], [0.000657105236,
+            -0.00022367631, 0.346736878], [0.000742539123, -0.000236982232, 0.346095473],
+            [0.000833352504, -0.000247140415, 0.34540379], [0.000928451482, -0.000254269544,
+            0.344667464]]},
+    },
+}
+# (c) cli.train --cfg configs/bp5_train.yaml (200 envs: the per-env path by the JAX package's
+# rule) --load ARTIFACT --lr 5e-4: PERENV_TRAIN_UPDATES updates of PERENV_TRAIN_STEPS steps (the
+# YAML's 750 cut) and 10 epochs; then one update of PERENV_VARIANT_STEPS steps on a copy of the
+# YAML with HardContact and Crutial set. (d) PPO3 over NumpyVecEnv at the YAML's 200 envs for
+# PPO3_STEPS steps and one learn, with the flagship's LSTM; then one PPO3 learn and one
+# ppo.learn update with MlpPolicy. (e) step against step_batch at 200 and 1024 envs, recorded.
+PERENV_B = 200
+PERENV_TRAIN_UPDATES, PERENV_TRAIN_STEPS, PERENV_VARIANT_STEPS = 2, 40, 20
+PPO3_STEPS = 30
+PERENV_TIMING_STEPS = 3
+PERENV_LOG_DIR = os.path.join(ROOT, "runs", "chip_smoke_perenv")
 
 
 def log(msg: str) -> None:
@@ -1818,7 +1983,7 @@ def _loss_and_grads(params, batch, ppo_cfg):
 
 def phase_bptt() -> dict:
     """ppo_loss and its gradients on a rollout's batch: kernels against plain."""
-    env_cfg = config.from_yaml(TRAIN_CFG).replace(num_envs=FULL_B)
+    env_cfg = config.from_yaml(TRAIN_CFG).replace(num_envs=FULL_B, use_lanes_physics=True)
     ppo_cfg = ppo.PPOConfig(n_steps=BPTT_STEPS)
     params = mio.load_bp5_csv(ARTIFACT, device=DEVICE)
     ts = ppo.init_train_state(env_cfg, ppo_cfg, env_cfg.seed, params, DEVICE)
@@ -1862,7 +2027,7 @@ def phase_training() -> dict:
     """cli.train at 1024 envs x 750 steps x 10 epochs, then an update's parts."""
     argv = ["--cfg", TRAIN_CFG, "--load", ARTIFACT, "--lr", "5e-4", "--num-envs", str(FULL_B),
             "--max-updates", str(TRAIN_UPDATES), "--log-dir", TRAIN_LOG_DIR, "--device", DEVICE]
-    env_cfg = config.from_yaml(TRAIN_CFG).replace(num_envs=FULL_B)
+    env_cfg = config.from_yaml(TRAIN_CFG).replace(num_envs=FULL_B, use_lanes_physics=True)
     if env_cfg.episode_len != TRAIN_STEPS or ppo.PPOConfig().noptepochs != TRAIN_EPOCHS:
         raise RuntimeError("the training shape is not the production one")
     torch.cuda.reset_peak_memory_stats()
@@ -2224,7 +2389,7 @@ def phase_terrain_training() -> dict:
             "--terrain-z-curriculum", ",".join(str(z) for z in TERRAIN_Z),
             "--max-updates", str(TERRAIN_TRAIN_UPDATES), "--log-dir", TERRAIN_TRAIN_LOG_DIR,
             "--device", DEVICE]
-    env_cfg = config.from_yaml(TERRAIN_CFG).replace(num_envs=FULL_B)
+    env_cfg = config.from_yaml(TERRAIN_CFG).replace(num_envs=FULL_B, use_lanes_physics=True)
     if env_cfg.episode_len != TRAIN_STEPS or not env_cfg.terrain:
         raise RuntimeError("the terrain training shape is not the production one")
     reset_counts()
@@ -2826,18 +2991,299 @@ def phase_wb_terrain() -> dict:
             "launches": counts}
 
 
-def wb_worker(out_path: str) -> int:
-    """Phase 14 on its own, its records written to ``out_path``. The main run
-    starts this in a second process alongside phases 9-13 (host-bound loops
-    of one Python thread each, the card mostly idle), so the script stays
-    inside its time limit; each path's launches are counted in this process,
-    around its own run."""
+# --- phase 15 -----------------------------------------------------------------
+
+def _no_physics_counts(lstm_pairs: int, train_steps: int = 0) -> dict:
+    """What a path on the per-env step launches: no physics kernel, ``lstm_pairs``
+    inference launches, and 2 training-forward and 2 backward launches a step
+    of BPTT over ``train_steps`` steps."""
+    return {"phys_substep": 0, "lstm_cell": lstm_pairs, "lstm_cell_train": 2 * train_steps,
+            "lstm_cell_bwd": 2 * train_steps}
+
+
+def phase_perenv_eval(variant: str) -> dict:
+    """(a) hard contact, (b) the meteorite attacks: the flagship at cmd 1-5 as
+    one batch on the per-env step, held to JAX's analysis.eval."""
+    tag = {"hard": "15a", "crucial": "15b"}[variant]
+    cfg = config.test_default().replace(terrain=False, crucial=variant == "crucial",
+                                        hard_contact=variant == "hard")
     params = mio.load_bp5_csv(ARTIFACT, device=DEVICE)
+    cmds = np.array([[c, 0.0, 0.0] for c in PERENV_COMMANDS], np.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    logr = ev.policy_rollout(ev._fixed_command_cfg(cfg), params, cmds,
+                             torch.Generator(device=DEVICE), PERENV_STEPS, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(counts, _no_physics_counts(LSTM_LAUNCHES_PER_STEP * PERENV_STEPS), tag)
+    gc = logr.gc.cpu().numpy()
+    failed, rows = [], []
+    for b, r in enumerate(ev.tracking_rows(cfg, logr, PERENV_COMMANDS)):
+        want = JAX_PERENV[variant][r["command"]]
+        base_err = float(np.abs(gc[:PERENV_BASE_ROWS, b, :3] - np.asarray(want["bases"])).max())
+        v_tol = max(PERENV_V_TOL, 2 * want["nudge_spread"])
+        rows.append({**r, "base_err": base_err, "v_tol": v_tol, "jax": want})
+        log(f"[{tag}] cmd {r['command']:.0f}: v {r['v_mean']:.4f} (JAX {want['v']:.4f}, diff "
+            f"{r['v_mean'] - want['v']:+.4f}; JAX's nudge spread {want['nudge_spread']:.4f}, "
+            f"limit {v_tol:.4f}), falls {r['falls']} (JAX {want['falls']}); bases over "
+            f"{PERENV_BASE_ROWS} steps within {base_err:.3g} of JAX (limit {PERENV_BASE_ATOL:g})")
+        if (not base_err <= PERENV_BASE_ATOL or r["falls"] != want["falls"]
+                or not abs(r["v_mean"] - want["v"]) <= v_tol):
+            failed.append(r["command"])
+    ms = wall / PERENV_STEPS * 1e3
+    log(f"[{tag}] {PERENV_STEPS} control steps of {len(cmds)} envs in {wall:.1f} s: {ms:.1f} ms a "
+        "control step")
+    if failed:
+        raise RuntimeError(f"phase {tag}: commands {failed} miss JAX's evaluation (see the log)")
+    return {"rows": rows, "wall_s": wall, "ms_per_step": ms, "launches": counts}
+
+
+def _config_txt(run_dir: str) -> dict:
+    with open(os.path.join(run_dir, "config.txt")) as f:
+        return dict(line.rstrip("\n").split(": ", 1) for line in f if ": " in line)
+
+
+def _trained_run(argv: list, updates: int, steps: int, tag: str) -> dict:
+    """One cli.train run on the per-env path: its launches, finite metrics,
+    the loss falling within each update, every leaf moved from the flagship."""
+    reset_counts()
+    t0 = time.perf_counter()
+    run_dir = cli_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(counts, _no_physics_counts(LSTM_LAUNCHES_PER_STEP * updates * (steps + 1),
+                                            updates * TRAIN_EPOCHS * steps), tag)
+    cfg_txt = _config_txt(run_dir)
+    if cfg_txt["use_lanes_physics"] != "False":
+        raise RuntimeError(f"phase {tag}: cli.train chose the lanes path")
+    rows = metrics_io.read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    if len(rows) != updates:
+        raise RuntimeError(f"phase {tag}: {len(rows)} metrics rows, expected {updates}")
+    for i, r in enumerate(rows):
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        if bad or not r["loss_last_epoch"] < r["loss_first_epoch"]:
+            raise RuntimeError(f"phase {tag}, update {i + 1}: non-finite {bad}, or loss "
+                               f"{r['loss_first_epoch']} -> {r['loss_last_epoch']}")
+        log(f"[{tag}] update {i + 1}: {r['time_rollout_s']:.2f} s rollout + "
+            f"{r['time_epochs_s']:.2f} s for {TRAIN_EPOCHS} epochs; loss "
+            f"{r['loss_first_epoch']:.5f} -> {r['loss_last_epoch']:.5f}; reward/step "
+            f"{r['reward_per_step']:.4f}; episodes ended {r['ep_count']:.0f}")
+    start = mio.policy_params_to_numpy(mio.load_bp5_csv(ARTIFACT, device=DEVICE))
+    trained = mio.policy_params_to_numpy(
+        mio.load_checkpoint(os.path.join(run_dir, "ckpt_final.pkl"), DEVICE)[0])
+    still = [k for k in trained if not np.abs(trained[k] - start[k]).max() > 0]
+    if still:
+        raise RuntimeError(f"phase {tag}: parameters that did not change: {still}")
+    ms = float(np.mean([r["time_rollout_s"] for r in rows])) / steps * 1e3
+    log(f"[{tag}] {updates} update(s) in {wall:.1f} s ({ms:.1f} ms a rollout step); every "
+        f"parameter leaf changed; hard_contact {cfg_txt['hard_contact']}, crucial "
+        f"{cfg_txt['crucial']}, use_lanes_physics {cfg_txt['use_lanes_physics']}")
+    return {"run_dir": os.path.relpath(run_dir, ROOT), "wall_s": wall, "updates": rows,
+            "rollout_ms_per_step": ms, "launches": counts}
+
+
+def phase_perenv_training() -> tuple[dict, dict]:
+    """(c) cli.train at the YAML's 200 envs on the per-env path, then one
+    update with hard contact and the attacks."""
+    import yaml
+    if config.from_yaml(TRAIN_CFG).num_envs != PERENV_B or cli_train.use_lanes(PERENV_B, False,
+                                                                                 False):
+        raise RuntimeError("configs/bp5_train.yaml no longer trains on the per-env path")
+    base = ["--load", ARTIFACT, "--lr", "5e-4", "--log-dir", PERENV_LOG_DIR, "--device", DEVICE]
+    flat = _trained_run(["--cfg", TRAIN_CFG, "--max-updates", str(PERENV_TRAIN_UPDATES),
+                         "--n-steps", str(PERENV_TRAIN_STEPS)] + base,
+                        PERENV_TRAIN_UPDATES, PERENV_TRAIN_STEPS, "15c")
+    with open(TRAIN_CFG) as f:
+        doc = yaml.safe_load(f)
+    doc["environment"].update({"HardContact": True, "Crutial": True})
+    variant_cfg = os.path.join(ROOT, "build", "bp5_train_hard_crucial.yaml")
+    os.makedirs(os.path.dirname(variant_cfg), exist_ok=True)
+    with open(variant_cfg, "w") as f:
+        yaml.safe_dump(doc, f)
+    variants = _trained_run(["--cfg", variant_cfg, "--max-updates", "1",
+                             "--n-steps", str(PERENV_VARIANT_STEPS)] + base,
+                            1, PERENV_VARIANT_STEPS, "15c")
+    if not {k: _config_txt(os.path.join(ROOT, variants["run_dir"]))[k]
+            for k in ("hard_contact", "crucial")} == {"hard_contact": "True", "crucial": "True"}:
+        raise RuntimeError("phase 15c: the variant run lost HardContact or Crutial")
+    return flat, variants
+
+
+def _ppo3_run(agent, env, steps: int) -> dict:
+    obs = env.observe()
+    for _ in range(steps):
+        obs, reward, done, _ = env.step(agent.get_next_action(obs))
+        agent.collect(obs, reward, done)
+    return agent.learn(obs)
+
+
+def phase_ppo3() -> tuple[dict, dict]:
+    """(d) PPO3 over NumpyVecEnv with the flagship's LSTM; then MlpPolicy
+    through PPO3 and through ppo.learn."""
+    cfg = config.from_yaml(TRAIN_CFG)
+    env = vec.NumpyVecEnv(cfg, seed=cfg.seed, device=DEVICE)
+    agent = ppo3.PPO3(ppo.PPOConfig(learning_rate=5e-4), n_envs=cfg.num_envs, device=DEVICE)
+    agent.params = mio.load_bp5_csv(ARTIFACT, device=DEVICE).requires_grad_()
+    agent.optimizer = ppo.make_optimizer(agent.cfg, agent.params)
+    start = mio.policy_params_to_numpy(agent.params)
+    reset_counts()
+    t0 = time.perf_counter()
+    m = _ppo3_run(agent, env, PPO3_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(counts, _no_physics_counts(LSTM_LAUNCHES_PER_STEP * (PPO3_STEPS + 1),
+                                            TRAIN_EPOCHS * PPO3_STEPS), "15d")
+    moved = mio.policy_params_to_numpy(agent.params)
+    if not (all(np.isfinite(v) for v in m.values())
+            and all(np.abs(moved[k] - start[k]).max() > 0 for k in start)):
+        raise RuntimeError(f"phase 15d: PPO3 metrics {m}, or a leaf that did not change")
+    log(f"[15d] PPO3 (LSTM) {PPO3_STEPS} steps x {cfg.num_envs} envs and learn in {wall:.1f} s: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in m.items()))
+    lstm_rec = {"metrics": m, "wall_s": wall, "launches": counts}
+
+    mlp_cfg = ppo.PPOConfig(policy="MlpPolicy", learning_rate=5e-4, n_steps=PPO3_STEPS)
+    agent = ppo3.PPO3(mlp_cfg, n_envs=cfg.num_envs, device=DEVICE)
+    start = mio.mlp_params_to_numpy(agent.params)
+    env.reset()
+    rows = []
+    reset_counts()
+    t0 = time.perf_counter()
+    m = _ppo3_run(agent, env, PPO3_STEPS)
+    ts = ppo.learn(cfg, mlp_cfg, cfg.num_envs * PPO3_STEPS, cfg.seed, verbose=False,
+                   metrics_hook=rows.append, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(counts, _no_physics_counts(0), "15d")
+    moved = mio.mlp_params_to_numpy(agent.params)
+    if not (len(rows) == 1 and all(np.isfinite(v) for v in {**m, **rows[0]}.values())
+            and all(np.abs(moved[k] - start[k]).max() > 0 for k in start)
+            and isinstance(ts.params, type(agent.params))):
+        raise RuntimeError(f"phase 15d: MlpPolicy metrics {m} / {rows}, or a leaf that did not "
+                           "change")
+    log(f"[15d] MlpPolicy: PPO3 and one ppo.learn update in {wall:.1f} s; PPO3 loss "
+        f"{m['loss']:.4g}, ppo.learn loss {rows[0]['loss_first_epoch']:.4g} -> "
+        f"{rows[0]['loss_last_epoch']:.4g}")
+    return lstm_rec, {"ppo3_metrics": m, "learn_metrics": rows[0], "wall_s": wall,
+                      "launches": counts}
+
+
+def _perenv_sites(fn, hard: bool) -> dict:
+    if fn is bp.step_batch:
+        return {"pre": (bp, "_pre_substeps"), "physics_call": (phys_cuda, "control_step"),
+                "post": (bp, "_post_substeps")}
+    dense = ({"substep_hard": (dyn, "substep_hard"), "pgs": (hard_contact, "solve_impulses")}
+             if hard else {"forward_dynamics": (dyn, "forward_dynamics"),
+                           "integrate": (dyn, "integrate")})
+    return {"pre": (bp, "_pre_substeps"), **dense, "post": (bp, "_post_substeps")}
+
+
+def _perenv_split(d: dict) -> dict:
+    """A control step by site: pre, the substeps (dense dynamics, the PGS solve
+    inside them, or step_batch's physics call), post and the rest."""
+    out = {"pre": d["pre"], "post": d["post"]}
+    if "physics_call" in d:
+        out["physics_call"] = d["physics_call"]
+    elif "pgs" in d:
+        out["dense_substeps"], out["pgs"] = d["substep_hard"] - d["pgs"], d["pgs"]
+    else:
+        out["dense_substeps"] = d["forward_dynamics"] + d["integrate"]
+    out["rest"] = d.get("total", sum(d.values())) - sum(out.values())
+    if "total" in d:
+        out["total"] = d["total"]
+    return out
+
+
+def phase_perenv_timing() -> dict:
+    """(e) step (compliant and hard) against step_batch on the training
+    config at 200 and 1024 envs: ms a control step, PyTorch ops and ms a step
+    by site, the device's busy share, peak memory. Recorded, not held."""
+    cfg = config.from_yaml(TRAIN_CFG)
+    out = {}
+    for B in (PERENV_B, FULL_B):
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        state = bp.env_init(cfg.replace(num_envs=B), B, gen, DEVICE)
+        act = torch.zeros((B, bp.ACT_DIM), device=DEVICE)
+        for name, fn, c in (("step", bp.step, cfg), ("step_hard", bp.step,
+                                                     cfg.replace(hard_contact=True)),
+                            ("step_batch", bp.step_batch, cfg)):
+            if name == "step_hard" and B != PERENV_B:
+                continue        # recorded at the training width only
+            c = c.replace(num_envs=B)
+
+            def run(n, st=state):
+                for _ in range(n):
+                    st = fn(c, st, act, gen).state
+                return st
+            run(1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            run(PERENV_TIMING_STEPS)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / PERENV_TIMING_STEPS * 1e3
+            peak = torch.cuda.max_memory_allocated() - before
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run(PERENV_TIMING_STEPS)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            dev = _kernel_device_ms(prof)["all"]
+            sites = _perenv_sites(fn, name == "step_hard")
+            ops = _perenv_split(ops_per_step_by_site(run, sites))
+            split = {}
+            if B == PERENV_B:
+                with _SyncedTimers(sites) as acc:
+                    t0 = time.perf_counter()
+                    run(2)
+                    synced = (time.perf_counter() - t0) / 2 * 1e3
+                split = _perenv_split({k: v / 2 * 1e3 for k, v in acc.items()} | {"total": synced})
+            rec = {"ms": ms, "device_busy": dev / (wall * 1e3) if dev > 0 else None,
+                   "device_ms": dev / PERENV_TIMING_STEPS, "peak_memory_bytes": peak,
+                   "torch_ops_per_step": ops, "synced_ms_by_site": split}
+            out[f"{name}_{B}"] = rec
+            busy = "not measured" if dev <= 0 else f"{dev / (wall * 1e3):.4f}"
+            log(f"[15e] {name} at {B} envs: {ms:.1f} ms a control step, device busy {busy}, "
+                f"peak {peak / 2 ** 20:.1f} MiB; PyTorch ops by site "
+                + ", ".join(f"{k} {v}" for k, v in ops.items()) + "; ms by site (synced) "
+                + (", ".join(f"{k} {v:.1f}" for k, v in split.items()) or "not measured"))
+    return out
+
+
+def _phase14() -> list:
+    params = mio.load_bp5_csv(ARTIFACT, device=DEVICE)
+    return [("14a", phase_wb_fleet), ("14b", phase_wb_track),
+            ("14c", lambda: phase_wb_parity(params)), ("14d", phase_wb_terrain)]
+
+
+def _phase15() -> list:
+    return [("15a", lambda: phase_perenv_eval("hard")),
+            ("15b", lambda: phase_perenv_eval("crucial")),
+            ("15c", phase_perenv_training), ("15d", phase_ppo3), ("15e", phase_perenv_timing)]
+
+
+def _phases10to12() -> list:
+    params = mio.load_bp5_csv(ARTIFACT, device=DEVICE)
+    return [("10", phase_terrain_eval), ("11", phase_terrain_training),
+            ("12", lambda: phase_parity(params))]
+
+
+def worker(out_path: str, phases: list) -> int:
+    """Run ``phases`` ((name, fn) pairs) and write their records to
+    ``out_path``. The main run starts one such process with phases 14, 15 and
+    10-12 (``--side-worker``) alongside phases 7-9 and 13 (host-bound loops of
+    one Python thread each, the card mostly idle), so the script stays inside
+    its time limit; each path's launches are counted in this process, around
+    its own run. (Phase 15 in a third process slowed the others by a third:
+    PERF.md.)"""
     seconds, rec = {}, {}
-    for name, fn, args in (("14a", phase_wb_fleet, ()), ("14b", phase_wb_track, ()),
-                           ("14c", phase_wb_parity, (params,)), ("14d", phase_wb_terrain, ())):
+    for name, fn in phases:
         t0 = time.perf_counter()
-        rec[name] = fn(*args)
+        rec[name] = fn()
         seconds[name] = time.perf_counter() - t0
         log(f"[{name}] {seconds[name]:.1f} s (second process)")
     with open(out_path, "w") as f:
@@ -2845,20 +3291,21 @@ def wb_worker(out_path: str) -> int:
     return 0
 
 
-class _WBWorker:
-    """The second process of :func:`wb_worker`: started on entry, waited for
-    by :meth:`result`, killed if the main run leaves before that."""
+class _SideWorker:
+    """The second process of :func:`worker` (``--side-worker``, phases 14, 15
+    and 10-12): started on entry, waited for by :meth:`result`, killed if the
+    main run leaves before that."""
 
     def __enter__(self):
-        self.path = os.path.join(ROOT, "build", f"chip_smoke_wb_{os.getpid()}.json")
+        self.path = os.path.join(ROOT, "build", f"chip_smoke_side_{os.getpid()}.json")
         os.makedirs(os.path.dirname(self.path), exist_ok=True)
         self.proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                                      "--wb-worker", self.path])
+                                      "--side-worker", self.path])
         return self
 
     def result(self) -> dict:
         if self.proc.wait() != 0:
-            raise RuntimeError(f"phase 14: the second process exited {self.proc.returncode}")
+            raise RuntimeError(f"the second process exited {self.proc.returncode}")
         with open(self.path) as f:
             return json.load(f)
 
@@ -2873,17 +3320,21 @@ class _WBWorker:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU")
     ap.add_argument("--out", default=None, help="also write all measurements to this JSON file")
-    ap.add_argument("--wb-worker", default=None, metavar="PATH",
-                    help="run only phase 14 and write its records to PATH (the main run starts "
-                    "this itself)")
+    ap.add_argument("--side-worker", default=None, metavar="PATH",
+                    help="run only phases 14, 15 and 10-12 and write their records to PATH (the "
+                    "main run starts this itself)")
+    ap.add_argument("--perenv-worker", default=None, metavar="PATH",
+                    help="run only phase 15 and write its records to PATH")
     args = ap.parse_args(argv)
     out_path = args.out
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA GPU",
               file=sys.stderr)
         return 1
-    if args.wb_worker:
-        return wb_worker(args.wb_worker)
+    if args.side_worker:
+        return worker(args.side_worker, _phase14() + _phase15() + _phases10to12())
+    if args.perenv_worker:
+        return worker(args.perenv_worker, _phase15())
     start, seconds = time.perf_counter(), {}
 
     def run(name, fn, *args):
@@ -2901,17 +3352,17 @@ def main(argv=None) -> int:
         "phys_substep": kern["phys_substep"]["ms"],
         "lstm_cell": statistics.mean(p["ms"] for p in kern["lstm_cell"]["per_launch"].values())})
     bptt = run("6", phase_bptt)
-    training = run("7", phase_training)
-    solve = run("8", phase_batched_solve)
-    with _WBWorker() as worker:   # phase 14 alongside phases 9-13
+    with _SideWorker() as side_worker:   # phases 14, 15 and 10-12 alongside 7-9 and 13
+        training = run("7", phase_training)
+        solve = run("8", phase_batched_solve)
         mpc = run("9", phase_mpc)
-        terrain_eval = run("10", phase_terrain_eval)
-        terrain_training = run("11", phase_terrain_training)
-        parity_rec = run("12", phase_parity, params)
         wholebody = run("13", phase_wholebody)
-        wb = run("14", worker.result)
-    wb_fleet, wb_track, wb_parity, wb_terrain = wb["14a"], wb["14b"], wb["14c"], wb["14d"]
-    seconds.update({f"{k} (second process)": v for k, v in wb["seconds"].items()})
+        side = run("side", side_worker.result)
+    terrain_eval, terrain_training, parity_rec = side["10"], side["11"], side["12"]
+    wb_fleet, wb_track, wb_parity, wb_terrain = (side[k] for k in ("14a", "14b", "14c", "14d"))
+    pe = {k: side[k] for k in ("15a", "15b", "15c", "15d", "15e")}
+    (perenv_training, perenv_variants), (ppo3_lstm, ppo3_mlp) = pe["15c"], pe["15d"]
+    seconds.update({f"{k} (second process)": v for k, v in side["seconds"].items()})
 
     # entry: the kernel function that `launches` counts and the record's times read; path:
     # the main path that launches it, whose own run `launches` was read after. An entry the
@@ -2935,7 +3386,10 @@ def main(argv=None) -> int:
             "parity": parity_rec, "wb_dense": wholebody["dense_frozen"],
             "wb_lanes_frozen": wholebody["lanes_frozen"], "wb_lanes_fd": wholebody["lanes_fd"],
             "wb_fleet": wb_fleet, "wb_track": wb_track, "mpc_vs_bp5": wb_parity,
-            "wb_terrain": wb_terrain}
+            "wb_terrain": wb_terrain, "perenv_hard_eval": pe["15a"],
+            "perenv_crucial_eval": pe["15b"], "perenv_training": perenv_training,
+            "perenv_training_variants": perenv_variants, "ppo3_lstm": ppo3_lstm,
+            "ppo3_mlp": ppo3_mlp}
     extras = ("shape", "per_launch", "call_ms", "plain_call_ms", "library_call_ms", "substep_ms",
               "substep_plain_ms", "substep_bound_ms", "substep_bound_by", "substep_max_abs_err",
               "c2t_ms", "c2t_pd_path_ms", "c2t_bound_ms", "c2t_bound_by", "c2t_max_abs_err",
@@ -2965,7 +3419,7 @@ def main(argv=None) -> int:
                        "batched_solve": solve, "mpc": mpc, "terrain_eval": terrain_eval,
                        "terrain_training": terrain_training, "parity": parity_rec,
                        "wholebody": wholebody, "wb_fleet": wb_fleet, "wb_track": wb_track,
-                       "wb_parity": wb_parity, "wb_terrain": wb_terrain,
+                       "wb_parity": wb_parity, "wb_terrain": wb_terrain, "perenv": pe,
                        "seconds_by_phase": seconds}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))

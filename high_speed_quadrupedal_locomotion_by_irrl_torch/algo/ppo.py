@@ -9,6 +9,13 @@ global-norm clipping (ppo2.py:190-197). Recurrent minibatching shuffles whole
 environments, never steps, keeping sequences intact (ppo2.py:381-404), and all
 environments are reset after every rollout (ppo2.py:577).
 
+The env steps on the batch-in-lanes physics (``envs.blackpanther.step_batch``,
+one fused kernel launch a control step) when ``env_cfg.use_lanes_physics``
+is set, else on the per-env physics (``envs.blackpanther.step``), as the JAX
+rollout chooses; ``cli/train.py`` sets the flag by the JAX package's rule.
+The policy is any module of :mod:`..models.registry` (``ppo_cfg.policy``):
+the recurrent LSTM or the feed-forward MLP.
+
 Where the JAX package carries a PRNG key, :class:`TrainState` carries two
 ``torch.Generator``s on the device: one for the env, one for action noise and
 minibatch permutations. On a terrain config the env state carries each env's
@@ -67,7 +74,7 @@ class PPOConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    params: lstm.PolicyParams     # leaves require grad; updated in place
+    params: lstm.PolicyParams     # (or mlp.MlpParams) leaves require grad; updated in place
     opt_state: torch.optim.Adam   # the optimizer over params.leaves(); holds moments and lr
     env_state: bp.EnvState        # batched (B leading axis)
     lstm_state: torch.Tensor      # (B, S)
@@ -180,6 +187,7 @@ def rollout(env_cfg: EnvConfig, ppo_cfg: PPOConfig, ts: TrainState,
     (``rollout_s``) and of the bootstrap and GAE (``gae_s``), the device
     synchronized around each."""
     pol = ppo_cfg.policy_mod
+    env_step = bp.step_batch if env_cfg.use_lanes_physics else bp.step
     T, B, dev = ppo_cfg.n_steps, env_cfg.num_envs, ts.obs.device
     t_start = _clock(dev) if timings is not None else 0.0
     buf = lambda *shape: torch.empty((T, B) + shape, device=dev)  # noqa: E731
@@ -195,7 +203,7 @@ def rollout(env_cfg: EnvConfig, ppo_cfg: PPOConfig, ts: TrainState,
         mb_nlp[t] = lstm.neglogp(out.mean, out.logstd, action)
         # the unclipped action is stored; the env takes the action-space bounds
         # (Runner, ppo2.py:530)
-        step_out = bp.step_batch(env_cfg, env_state, torch.clamp(action, -1.0, 1.0), ts.gen_env)
+        step_out = env_step(env_cfg, env_state, torch.clamp(action, -1.0, 1.0), ts.gen_env)
         mb_obs[t], mb_actions[t], mb_values[t] = obs, action, out.value
         mb_dones_before[t], mb_rewards[t], mb_dones_after[t] = dones_f, step_out.reward, step_out.done
         # per-episode accumulators; (r, l) counted on done like the reference's

@@ -8,6 +8,12 @@ Each env of a batch computes exactly what a rollout of its command alone
 computes. On a terrain config every env of a rollout starts on the same
 stretch of the heightmap, as the JAX package's rollouts of one key do,
 unless the caller gives each env its map offset.
+
+The JAX package's rollout steps its per-env ``bp.step`` (eval.py:87). The
+port steps ``step_batch`` (the fused physics kernel) where it can, and the
+per-env ``step`` under hard contact or the meteorite attacks, which
+``step_batch`` does not run (``scripts/hard_contact_eval.py``'s protocol:
+``HardContact: true``).
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ def policy_rollout(cfg: EnvConfig, params: lstm.PolicyParams, command,
                                                                      command_filtered=cmd)
     obs = bp.observe(cfg, state)
     s_size = lstm.state_size([w.wh.shape[0] for w in params.pi_lstm])
+    env_step = bp.step if cfg.hard_contact or cfg.crucial else bp.step_batch
     lstm_state = torch.zeros((B, s_size), device=device)
     no_reset = torch.zeros(B, device=device)
     cmd_n = (cmd - bp.obs_mean(cfg, device)[:3]) / bp.obs_std(cfg, device)[:3]
@@ -82,7 +89,7 @@ def policy_rollout(cfg: EnvConfig, params: lstm.PolicyParams, command,
             delayed = obs
         delayed = torch.cat([cmd_n, delayed[:, 3:]], dim=-1)  # manual-mode command injection
         action, lstm_state = lstm.deterministic_action(params, delayed, lstm_state, no_reset)
-        out = bp.step_batch(cfg, state.replace(command=cmd, command_filtered=cmd), action, gen)
+        out = env_step(cfg, state.replace(command=cmd, command_filtered=cmd), action, gen)
         state, obs = out.state, out.obs
         for k, v in (("gc", state.gc), ("gv", state.gv), ("torque", state.torque_applied),
                      ("action", action), ("obs", obs), ("reward", out.reward),

@@ -13,7 +13,10 @@ Runs on the card (``--device cuda``, the default) or on the CPU
 ppo2.py:452-476) and come with a bp5-format CSV export for the
 dependency-free deployment path; ``--load`` takes either. The JAX package's
 ``.pkl`` checkpoints are not read: hand such a controller over as its CSV
-directory.
+directory. The physics follows the JAX package's rule: the batch-in-lanes
+``step_batch`` at ``--num-envs`` >= 1024 or with ``--lanes``, else the per-env
+``step`` (every shipped training YAML has 200 envs), which ``--no-lanes``
+forces at any width and which alone runs ``HardContact`` and ``Crutial``.
 
   rough terrain: ... --cfg .../configs/bp5_relax_terrain.yaml \
                      --load artifacts/irrl_tpu_terrain_relaxed --num-envs 1024 \
@@ -39,10 +42,17 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.utils.run_dir import make_r
 # flags of the JAX package's cli/train.py whose code is not in the port yet, with
 # the ROADMAP.md queue item that brings each
 _NOT_PORTED = {
-    "no_lanes": ("--no-lanes", "the per-env step path (ROADMAP.md, Queue 1: per-env step "
-                               "paths and physics variants)"),
     "distributed": ("--distributed", "multi-GPU training (ROADMAP.md, Queue 1: multi-GPU)"),
 }
+# the JAX package's rule (cli/train.py:93-118): the batch-in-lanes physics from this
+# many envs on, unless --no-lanes; the per-env physics below it, unless --lanes
+LANES_MIN_ENVS = 1024
+
+
+def use_lanes(num_envs: int, lanes: bool, no_lanes: bool) -> bool:
+    """Whether training steps the batch-in-lanes physics (``step_batch``, one
+    fused kernel launch a control step) or the per-env physics (``step``)."""
+    return (lanes or num_envs >= LANES_MIN_ENVS) and not no_lanes
 
 
 def parse_args(argv):
@@ -83,9 +93,11 @@ def parse_args(argv):
                         "small smoke runs)")
     p.add_argument("--distributed", action="store_true", help="not in the port yet (raises)")
     p.add_argument("--lanes", action="store_true",
-                   help="batched physics, one fused kernel launch a control step: the "
-                        "port's only physics path, so the flag changes nothing")
-    p.add_argument("--no-lanes", action="store_true", help="not in the port yet (raises)")
+                   help="batch-in-lanes physics (step_batch: one fused kernel launch a "
+                        f"control step); on by itself at --num-envs >= {LANES_MIN_ENVS}")
+    p.add_argument("--no-lanes", action="store_true",
+                   help="force the per-env physics (step: the dense dynamics, hard contact "
+                        "and the meteorite attacks) even at large --num-envs")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -112,8 +124,13 @@ def main(argv=None):
         env_cfg = env_cfg.replace(seed=args.seed)
     if args.num_envs is not None:
         env_cfg = env_cfg.replace(num_envs=args.num_envs)
-    env_cfg = env_cfg.replace(use_lanes_physics=True)
-    print(f"physics path: batched lanes (num_envs={env_cfg.num_envs}) on {device}")
+    env_cfg = env_cfg.replace(use_lanes_physics=use_lanes(env_cfg.num_envs, args.lanes,
+                                                          args.no_lanes))
+    if env_cfg.use_lanes_physics:
+        print(f"physics path: batch-in-lanes (num_envs={env_cfg.num_envs}) on {device}")
+    else:
+        print(f"physics path: per-env (num_envs={env_cfg.num_envs}; lanes from --num-envs "
+              f">= {LANES_MIN_ENVS} or with --lanes) on {device}")
     ppo_cfg = ppo.PPOConfig(learning_rate=args.lr, lr_final=args.lr_final,
                             n_steps=args.n_steps or env_cfg.episode_len,
                             entropy_floor=args.entropy_floor)

@@ -128,12 +128,13 @@ class EnvConfig:
     # hard (impulse/LCP-class) toe contact: velocity-level friction-cone
     # complementarity solved by fixed-iteration projected Gauss-Seidel per
     # substep (phys/hard_contact.py) — the Raisim-class solver the reference
-    # trains in. Not yet in the port (envs.blackpanther raises); YAML
-    # extension key "HardContact".
+    # trains in. Runs on the per-env envs.blackpanther.step only (step_batch
+    # refuses it, as JAX's asserts); YAML extension key "HardContact".
     hard_contact: bool = False
     hard_contact_iters: int = 12
-    # batch-in-lanes physics in the PPO rollout; the port's step_batch always
-    # runs the batched substep, the field is kept for config parity
+    # the PPO rollout's physics: step_batch (batch-in-lanes, the fused kernel
+    # launch) when set, else the per-env step; cli/train.py sets it by the
+    # JAX package's rule (lanes at --num-envs >= 1024 or with --lanes)
     use_lanes_physics: bool = False
 
     # --- domain randomization magnitudes (Environment.hpp:2069-2071)

@@ -3,15 +3,28 @@
 Port of ``envs/blackpanther.py`` (the reference's
 ``BlackPanther_V55/Environment.hpp``): reset, the PD-to-torque pipeline with
 the speed-dependent motor envelope (:mod:`..ops.pd_torque`) and 8 physics
-substeps a control step, fused into one call of the hand-written CUDA kernel
-(:func:`..ops.phys_cuda.control_step`), observation, the
-8-term DeepMimic reward, termination, online references and the branchless
-auto-reset. Every field of :class:`EnvState` has a leading env axis; a single
-env is a batch of one. Randomness comes from a ``torch.Generator`` that lives
-on the state's device. On a terrain config (``cfg.terrain``) every env stands
-on its own stretch of the shared sampled heightmap (:mod:`..phys.terrain`):
-it spawns above the ground under it, and the physics kernel looks the
-ground up under every toe and base corner.
+substeps a control step, observation, the 8-term DeepMimic reward,
+termination, online references, the branchless auto-reset and the
+meteorite-attack curriculum (``cfg.crucial``). Every field of
+:class:`EnvState` has a leading env axis; a single env is a batch of one.
+Randomness comes from a ``torch.Generator`` that lives on the state's device.
+
+Two control steps share everything but the substeps, and draw from the
+generator in the same order:
+
+* :func:`step_batch`, the batch-in-lanes path: the substeps fused into one
+  call of the hand-written CUDA kernel (:func:`..ops.phys_cuda.control_step`),
+  compliant contact with a vertical normal on terrain;
+* :func:`step`, the counterpart of JAX's ``vmap(step)``: the dense per-env
+  physics of :mod:`..phys.dynamics` substep by substep (plain PyTorch, as JAX
+  computes it outside any Pallas kernel), with the terrain's own normal, hard
+  toe contact (``cfg.hard_contact``) and the attack spheres' wrenches, which
+  ``step_batch`` refuses as JAX's does.
+
+On a terrain config (``cfg.terrain``) every env stands on its own stretch of
+the shared sampled heightmap (:mod:`..phys.terrain`): it spawns above the
+ground under it, and the physics looks the ground up under every toe and
+base corner.
 
 Reference quirks kept as in the JAX package (the shipped policies were
 trained against them): the torque smoothing mixes 1% of the *normalized*
@@ -19,9 +32,8 @@ torque of the previous control step; the "stop" command bucket is a no-op;
 Vx_min stays 0; reward mimic targets lag the state by one control step.
 
 Not in the port yet, and raising ``NotImplementedError`` rather than running
-something else: the meteorite attacks (``cfg.crucial``) and hard contact
-(``cfg.hard_contact``), which need the per-env step, the analytic fractal
-terrain (``cfg.terrain_sampled=False``), and RefTraj reference tables.
+something else: the analytic fractal terrain (``cfg.terrain_sampled=False``)
+and RefTraj reference tables.
 """
 
 from __future__ import annotations
@@ -38,7 +50,10 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch.config import EnvConfig
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import pd_torque, phys_cuda
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as lanes
+from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import contact as ct
+from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import dynamics as dyn
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
+from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import spatial as sp
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import terrain as tr
 from high_speed_quadrupedal_locomotion_by_irrl_torch.robot import gait
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils.rotation import quat_to_matrix
@@ -83,6 +98,13 @@ class EnvState:
     ep_return: torch.Tensor          # (B,)
     ep_len: torch.Tensor             # (B,) int32
     reward_terms: torch.Tensor       # (B, 8) [EE, BodyPos, BodyAtti, J, Jdot, Vel, Torque, Contact]
+    # meteorite-attack curriculum (crucial learning, Environment.hpp:815-861);
+    # C = 0 spheres when cfg.crucial is off
+    cube_pos: torch.Tensor           # (B, C, 3)
+    cube_vel: torch.Tensor           # (B, C, 3)
+    cube_radius: torch.Tensor        # (B,)
+    cube_mass: torch.Tensor          # (B,)
+    cube_active: torch.Tensor        # (B,) bool: the spheres are dynamic (attacking)
 
     def replace(self, **kw) -> "EnvState":
         return dataclasses.replace(self, **kw)
@@ -97,11 +119,6 @@ class StepOut(NamedTuple):
 
 
 def _check_supported(cfg: EnvConfig) -> None:
-    for flag, what in (("crucial", "meteorite attacks"), ("hard_contact", "hard contact")):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"cfg.{flag} ({what}) is not in the PyTorch port yet: it comes with the "
-                "per-env step and physics-variant slice (ROADMAP.md)")
     if cfg.terrain and not cfg.terrain_sampled:
         raise NotImplementedError(
             "cfg.terrain_sampled=False (the analytic fractal terrain) is not in the PyTorch "
@@ -118,6 +135,9 @@ class _Consts(NamedTuple):
     phase_offsets: torch.Tensor  # (4,)
     init_joint_ref: torch.Tensor  # (12,)
     stand_gc: torch.Tensor      # (19,)
+    cube_ring: torch.Tensor     # (C, 3) attack-sphere spawn ring around the robot
+    box_half: torch.Tensor      # (3,) base collision box half-extents
+    gravity: torch.Tensor       # (3,)
 
 
 def _obs_mean_np(cfg: EnvConfig) -> np.ndarray:
@@ -143,7 +163,9 @@ def _consts(cfg: EnvConfig, device: torch.device) -> _Consts:
         torque_limit=t(mdl.TORQUE_LIMIT_J),
         phase_offsets=t(cfg.phase_offsets),
         init_joint_ref=t(np.array([-1.0, 0, 0, 1.0, 0, 0, -1.0, 0, 0, 1.0, 0, 0]) * cfg.abad),
-        stand_gc=t(mdl.stand_gc(cfg.abad)))
+        stand_gc=t(mdl.stand_gc(cfg.abad)),
+        cube_ring=t(_circle_place(cfg.cube_place_radius, cfg.num_cube if cfg.crucial else 0)),
+        box_half=t(mdl.BODY_BOX_HALF), gravity=t([0.0, 0.0, -9.81]))
 
 
 # --- observation statistics (Environment.hpp:374-393) -----------------------
@@ -353,6 +375,76 @@ def _force_attack(cfg: EnvConfig, gen: torch.Generator, B: int, device) -> torch
     return torch.where(trigger[:, None], wrench, torch.zeros_like(wrench))
 
 
+def _circle_place(radius: float, num: int) -> np.ndarray:
+    """(num, 3) ring positions at z=1 (circle_place, Environment.hpp:61-66)."""
+    ang = np.arange(num) / max(num, 1) * 2.0 * np.pi
+    return np.stack([radius * np.sin(ang), radius * np.cos(ang), np.ones(num)], axis=-1)
+
+
+def _cube_ring_reset(cfg: EnvConfig, gc: torch.Tensor, t: torch.Tensor):
+    """Re-spawn every env's attack spheres around its robot; size and mass
+    grow with episode time (meteoriteAttack reset branch,
+    Environment.hpp:827-841). -> (pos (B, C, 3), vel, radius (B,), mass (B,))."""
+    ring = _consts(cfg, gc.device).cube_ring
+    centre = torch.stack([gc[:, 0] + 0.05, gc[:, 1], gc[:, 2]], dim=-1)
+    pos = ring + centre[:, None, :]
+    return pos, torch.zeros_like(pos), (t / 5.0 + 1.0) * cfg.cube_len, t / 5.0 + 0.2
+
+
+SHANK_CAPSULE_RADIUS = 0.016  # visual shank mesh thickness (black_panther.urdf shank .dae)
+
+
+def _sphere_robot_forces(cfg: EnvConfig, params, gc: torch.Tensor, cube_pos, cube_vel,
+                         radius, mass, tp):
+    """Attack-sphere contact with the ground, the base box and the four shank
+    capsules (knee to toe) of every env (meteoriteAttack,
+    Environment.hpp:815-861). cube_pos, cube_vel (B, C, 3); radius, mass (B,).
+    Returns (sphere accelerations (B, C, 3), the reaction on the robot as
+    world-origin wrenches (B, 13, 6), the per-body ``f_ext_extra`` of the
+    substeps)."""
+    kn, dn = 5e4, 100.0
+    c = _consts(cfg, gc.device)
+    # ground contact
+    f_ground, _ = ct.point_contact_force(cube_pos, cube_vel, radius[:, None], tp, kn, dn, 0.6,
+                                         cfg.contact_slip_vel)
+    # body-box contact: closest point on the box (body frame) to the sphere's centre
+    R = quat_to_matrix(gc[:, 3:7])
+    rel = torch.einsum("bji,bcj->bci", R, cube_pos - gc[:, None, :3])
+    closest = torch.clamp(rel, -c.box_half, c.box_half)
+    delta = rel - closest
+    dist = torch.linalg.vector_norm(delta, dim=-1)
+    pen = torch.clamp_min(radius[:, None] - dist, 0.0)
+    n_body = delta / torch.clamp_min(dist, 1e-6)[..., None]
+    n_world = torch.einsum("bij,bcj->bci", R, n_body)
+    f_box = (kn * pen)[..., None] * n_world              # on the sphere, world frame
+    box_contact_w = gc[:, None, :3] + torch.einsum("bij,bcj->bci", R, closest)
+
+    # shank-capsule contact: each leg's knee-to-toe segment against each sphere
+    kin = dyn.fk(params, gc)
+    seg_a = kin.p[:, dyn.SHANKS, :]                       # (B, 4, 3) knee anchors
+    ab = kin.toe_pos - seg_a
+    ab_len2 = torch.clamp_min(torch.sum(ab * ab, dim=-1), 1e-9)
+    ap = cube_pos[:, :, None, :] - seg_a[:, None, :, :]   # (B, C, 4, 3)
+    s = torch.clamp(torch.einsum("bcli,bli->bcl", ap, ab) / ab_len2[:, None, :], 0.0, 1.0)
+    closest_seg = seg_a[:, None] + s[..., None] * ab[:, None]
+    d_seg = cube_pos[:, :, None, :] - closest_seg
+    dist_seg = torch.linalg.vector_norm(d_seg, dim=-1)   # (B, C, 4)
+    pen_seg = torch.clamp_min(radius[:, None, None] + SHANK_CAPSULE_RADIUS - dist_seg, 0.0)
+    n_seg = d_seg / torch.clamp_min(dist_seg, 1e-6)[..., None]
+    f_shank = (kn * pen_seg)[..., None] * n_seg          # (B, C, 4, 3) on the sphere
+
+    f_total = f_ground + f_box + torch.sum(f_shank, dim=2)
+    acc = f_total / torch.clamp_min(mass, 1e-6)[:, None, None] + c.gravity
+
+    # reaction wrenches on the robot (world-origin spatial forces)
+    base = torch.sum(sp.force_at_point(-f_box, box_contact_w), dim=1)
+    shank = torch.sum(sp.force_at_point(-f_shank, closest_seg), dim=1)      # (B, 4, 6)
+    zero = torch.zeros_like(base)
+    rows = [base] + [shank[:, dyn._SHANK.index(b)] if b in dyn._SHANK else zero
+                     for b in range(1, mdl.NUM_BODIES)]
+    return acc, torch.stack(rows, dim=1)
+
+
 # --- reset --------------------------------------------------------------------
 
 def env_init(cfg: EnvConfig, batch: int, gen: torch.Generator, device=None,
@@ -388,7 +480,10 @@ def env_init(cfg: EnvConfig, batch: int, gen: torch.Generator, device=None,
         contact_filtered=z(4), contact_force_norm=z(4), contact_vel_norm=z(4),
         obs_double=z(OBS_DIM), obs_last=z(OBS_DIM),
         done=torch.zeros(batch, dtype=torch.bool, device=device), ep_return=z(),
-        ep_len=zi(), reward_terms=z(8))
+        ep_len=zi(), reward_terms=z(8), cube_pos=z(c.cube_ring.shape[0], 3),
+        cube_vel=z(c.cube_ring.shape[0], 3), cube_radius=torch.full_like(z(), cfg.cube_len),
+        cube_mass=torch.full_like(z(), cfg.cube_mass),
+        cube_active=torch.zeros(batch, dtype=torch.bool, device=device))
     return reset(cfg, blank, gen)
 
 
@@ -398,7 +493,8 @@ def reset(cfg: EnvConfig, state: EnvState, gen: torch.Generator) -> EnvState:
     gait reference, base velocity seeded from the command +-20%, random xy
     +-5 m; manual mode starts from the stand pose at rest. On terrain the base
     spawns at stand height above the ground under it. Dynamics params,
-    terrain, the raw command and the last position target persist."""
+    terrain, the raw command and the last position target persist; under
+    ``cfg.crucial`` the attack spheres re-spawn around the robot, at rest."""
     B, dev = state.gc.shape[0], state.gc.device
     c = _consts(cfg, dev)
     zeros = lambda *shape: torch.zeros((B,) + shape, device=dev)  # noqa: E731
@@ -436,6 +532,12 @@ def reset(cfg: EnvConfig, state: EnvState, gen: torch.Generator) -> EnvState:
                               upd.joint_dot_ref, t0, is_reset=False)
     obs = torch.cat([upd2.command_filtered, obs[:, 3:]], dim=-1)
 
+    if cfg.crucial:  # re-spawn the attack ring (meteoriteAttack(true), :608-612)
+        cube_pos, cube_vel, cube_radius, cube_mass = _cube_ring_reset(cfg, gc, t0)
+        state = state.replace(cube_pos=cube_pos, cube_vel=cube_vel, cube_radius=cube_radius,
+                              cube_mass=cube_mass,
+                              cube_active=torch.zeros(B, dtype=torch.bool, device=dev))
+
     return state.replace(
         gc=gc, gv=gv, torque_norm_last=zeros(12), torque_applied=zeros(12),
         base_wrench=zeros(6), command=upd2.command, command_filtered=upd2.command_filtered,
@@ -456,12 +558,18 @@ class _PreOut(NamedTuple):
     gv: torch.Tensor
     ptarget: torch.Tensor
     base_wrench: torch.Tensor
+    cube_pos: torch.Tensor
+    cube_vel: torch.Tensor
+    cube_radius: torch.Tensor
+    cube_mass: torch.Tensor
+    cube_active: torch.Tensor
 
 
 def _pre_substeps(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
-                  gen: torch.Generator) -> _PreOut:
-    """Everything before the physics substeps: action pipeline and
-    disturbances."""
+                  gen: torch.Generator):
+    """Everything before the physics substeps: action pipeline, disturbances,
+    the attack spheres' update. Returns (_PreOut, the spheres' per-body
+    wrenches (B, 13, 6) on the robot for the substeps, or None)."""
     B, dev = action.shape[0], action.device
     c = _consts(cfg, dev)
     # -- action scaling + filtering + multiplicative action noise (:700-705)
@@ -492,7 +600,36 @@ def _pre_substeps(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
                           gv[:, 3:5] + 0.3 * kn_vel[:, 3:5] * ratio, gv[:, 5:]], dim=-1)
         gc = torch.where(kick, gc_k, gc)
         gv = torch.where(kick, gv_k, gv)
-    return _PreOut(gc=gc, gv=gv, ptarget=ptarget, base_wrench=base_wrench)
+
+    # -- meteorite-attack curriculum (crucial learning, Environment.hpp:717-741)
+    cube_pos, cube_vel = state.cube_pos, state.cube_vel
+    cube_radius, cube_mass, cube_active = state.cube_radius, state.cube_mass, state.cube_active
+    f_ext_extra = None
+    if cfg.crucial:
+        ring_frames = max(int(5 * cfg.period / cfg.control_dt), 1)
+        respawn = (state.frame_idx % ring_frames) == 0
+        pos_r, vel_r, rad_r, mass_r = _cube_ring_reset(cfg, gc, state.current_time)
+        launch_vel = torch.cat([gv[:, None, :2].expand(-1, cube_vel.shape[1], 2),
+                                torch.full_like(cube_vel[..., :1], -5.0)], dim=-1)
+        do_launch = ~respawn & ~cube_active
+        per_sphere = lambda m: m[:, None, None]  # noqa: E731
+        cube_pos = torch.where(per_sphere(respawn), pos_r, cube_pos)
+        cube_vel = torch.where(per_sphere(respawn), vel_r,
+                               torch.where(per_sphere(do_launch), launch_vel, cube_vel))
+        cube_radius = torch.where(respawn, rad_r, cube_radius)
+        cube_mass = torch.where(respawn, mass_r, cube_mass)
+        cube_active = ~respawn
+        # integrate the spheres over the control step; their contact reaction
+        # (body box + shank capsules) loads the robot during the substeps
+        acc, reaction = _sphere_robot_forces(cfg, state.params, gc, cube_pos, cube_vel,
+                                             cube_radius, cube_mass, state.terrain)
+        dyn_mask = per_sphere(cube_active.to(gc.dtype))
+        cube_vel = cube_vel + cfg.control_dt * acc * dyn_mask
+        cube_pos = cube_pos + cfg.control_dt * cube_vel * dyn_mask
+        f_ext_extra = reaction * dyn_mask
+    return _PreOut(gc=gc, gv=gv, ptarget=ptarget, base_wrench=base_wrench, cube_pos=cube_pos,
+                   cube_vel=cube_vel, cube_radius=cube_radius, cube_mass=cube_mass,
+                   cube_active=cube_active), f_ext_extra
 
 
 class _Diag(NamedTuple):
@@ -516,9 +653,17 @@ def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
     actuation of the JAX ``step``: a joint-torque feedforward and a scale on
     the PD feedback, held over the control step's substeps. On a terrain
     config the call carries the heightmap and the envs' terrain rows (JAX
-    ``step_batch``'s ground_fn: vertical contact normal)."""
+    ``step_batch``'s ground_fn: vertical contact normal).
+
+    The attack spheres (``cfg.crucial``) and hard contact
+    (``cfg.hard_contact``) run on :func:`step` only, as in the JAX package
+    (blackpanther.py:809-812): here they raise."""
     _check_supported(cfg)
-    pre = _pre_substeps(cfg, states, actions, gen)
+    for flag, what in (("crucial", "the meteorite attacks"), ("hard_contact", "hard contact")):
+        if getattr(cfg, flag):
+            raise ValueError(f"step_batch runs the compliant no-attack physics; cfg.{flag} "
+                             f"({what}) runs on the per-env step: use envs.blackpanther.step")
+    pre, _ = _pre_substeps(cfg, states, actions, gen)
     P = lanes.params_to_lanes(states.params)
     rows = lambda x: None if x is None else x.T.contiguous()  # noqa: E731
     gcT, gvT, toe, toe_vel, fnorm, fnormal, tauT = phys_cuda.control_step(
@@ -533,10 +678,50 @@ def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
                           tauT.T.contiguous(), diag, pre)
 
 
+def step(cfg: EnvConfig, states: EnvState, actions: torch.Tensor, gen: torch.Generator,
+         tau_ff: torch.Tensor | None = None,
+         pd_scale: torch.Tensor | None = None) -> StepOut:
+    """One control step of every env with auto-reset on the per-env physics
+    (blackpanther.py:654-703; the batched counterpart of JAX's
+    ``vmap(step)``).
+
+    The same action pipeline, disturbances, observation, reward and reset as
+    :func:`step_batch`, drawing from ``gen`` in the same order; the cfg.substeps
+    (8) substeps each recompute the PD torque from the fresh state, then run
+    the dense dynamics of :mod:`..phys.dynamics`: ``forward_dynamics`` +
+    ``integrate`` with the terrain's own contact normal, or under
+    ``cfg.hard_contact`` the impulse solve of ``substep_hard``, its impulses
+    zeroed at the control step's start and warm-started across its substeps.
+    Under ``cfg.crucial`` the attack spheres' wrenches load the robot in
+    every substep. ``tau_ff``/``pd_scale`` ((B, 12) each, optional) are the
+    Convert2Torque inputs, held over the substeps."""
+    _check_supported(cfg)
+    pre, f_ext_extra = _pre_substeps(cfg, states, actions, gen)
+    pd = pd_torque.from_config(cfg)
+    gc, gv, dt = pre.gc, pre.gv, cfg.simulation_dt
+    lam = None      # the impulses start from zero at each control step
+    for _ in range(cfg.substeps):
+        tau = pd_torque.pd_torque(pd, pre.ptarget, states.torque_norm_last, gc[:, 7:], gv[:, 6:],
+                                  tau_ff, pd_scale)
+        if cfg.hard_contact:
+            gc, gv, diag, lam = dyn.substep_hard(states.params, gc, gv, tau, pre.base_wrench,
+                                                 states.terrain, dt, f_ext_extra,
+                                                 cfg.hard_contact_iters, lam)
+        else:
+            qdd, diag = dyn.forward_dynamics(
+                states.params, gc, gv, tau, pre.base_wrench, states.terrain,
+                cfg.contact_slip_vel, f_ext_extra=f_ext_extra,
+                impulse_scale=cfg.contact_impulse_mass / dt)
+            gc, gv = dyn.integrate(gc, gv, qdd, dt)
+    return _post_substeps(cfg, states, gen, gc, gv, tau, diag, pre)
+
+
 def _post_substeps(cfg: EnvConfig, state: EnvState, gen: torch.Generator, gc, gv,
-                   torque_applied, last_diag: _Diag, pre: _PreOut) -> StepOut:
+                   torque_applied, last_diag, pre: _PreOut) -> StepOut:
     """Everything after the physics substeps: observation, reward, reference
-    update, termination and the branchless auto-reset."""
+    update, termination and the branchless auto-reset. Shared by
+    :func:`step` and :func:`step_batch`; ``last_diag`` is the last substep's
+    :class:`_Diag` or ``phys.dynamics.StepDiagnostics``."""
     # -- observation at the new state (time = state.current_time)
     t = state.current_time
     obs, v_body, w_body, R = _raw_observation(cfg, gen, gc, gv, state.command_filtered, t)
@@ -583,7 +768,8 @@ def _post_substeps(cfg: EnvConfig, state: EnvState, gen: torch.Generator, gc, gv
         contact_filtered=contact_flag, contact_force_norm=contact_force_norm,
         contact_vel_norm=contact_vel_norm, obs_double=obs, obs_last=obs,
         done=done, ep_return=state.ep_return + reward, ep_len=state.ep_len + 1,
-        reward_terms=rew.terms)
+        reward_terms=rew.terms, cube_pos=pre.cube_pos, cube_vel=pre.cube_vel,
+        cube_radius=pre.cube_radius, cube_mass=pre.cube_mass, cube_active=pre.cube_active)
 
     # -- auto-reset with terminal reward (perAgentStep, VectorizedEnvironment.hpp:352-372)
     out_state = _where(done, reset(cfg, new_state, gen), new_state)
@@ -601,3 +787,37 @@ def _where(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
     kw = {f.name: sel(getattr(a, f.name), getattr(b, f.name))
           for f in dataclasses.fields(EnvState) if f.name not in ("params", "terrain")}
     return b.replace(**kw)
+
+
+# --- introspection parity (Environment.hpp:1317-1402), (B, ...) each -----------------
+
+def origin_state(state: EnvState) -> torch.Tensor:
+    """gc(19) + gv(18) + contact(4) = 41 floats (OriginState)."""
+    return torch.cat([state.gc, state.gv, state.contact_filtered], dim=-1)
+
+
+def reference_state(state: EnvState) -> torch.Tensor:
+    return torch.cat([state.joint_ref, state.joint_dot_ref], dim=-1)
+
+
+def joint_effort(state: EnvState) -> torch.Tensor:
+    return state.torque_applied
+
+
+def generalized_force(state: EnvState) -> torch.Tensor:
+    """Applied generalized force [base wrench(6); joint torques(12)]
+    (GetGeneralizedForce, Environment.hpp:1363-1370)."""
+    return torch.cat([state.base_wrench, state.torque_applied], dim=-1)
+
+
+def inverse_mass_matrix(state: EnvState) -> torch.Tensor:
+    return dyn.inverse_mass_matrix(state.params, state.gc)
+
+
+def nonlinear(state: EnvState) -> torch.Tensor:
+    return dyn.nonlinearities(state.params, state.gc, state.gv)
+
+
+def sphere_info(state: EnvState) -> torch.Tensor:
+    """First attack sphere [x, y, z, radius] (GetSphereInfo, Environment.hpp:1423-1436)."""
+    return torch.cat([state.cube_pos[:, 0], state.cube_radius[:, None]], dim=-1)

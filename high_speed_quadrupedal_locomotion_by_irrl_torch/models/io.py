@@ -30,6 +30,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models.lstm import (
     LSTMWeights, PolicyParams, init,
 )
+from high_speed_quadrupedal_locomotion_by_irrl_torch.models.mlp import MlpParams
 
 
 def load_bp5_csv(path: str, n_lstm: Sequence[int] = (48, 48), act_dim: int = 12,
@@ -114,6 +115,31 @@ def policy_params_from_numpy(tree, device=None) -> PolicyParams:
     return PolicyParams(pi_lstm=stack(tree.pi_lstm), v_lstm=stack(tree.v_lstm),
                         pi_w=t(tree.pi_w), pi_b=t(tree.pi_b), logstd=t(tree.logstd),
                         vf_w=t(tree.vf_w), vf_b=t(tree.vf_b))
+
+
+def mlp_params_to_numpy(params: MlpParams) -> dict:
+    """{leaf name: numpy array}, names as ``MlpParams.named_leaves`` gives them
+    ("pi_layers.0.w", ..., "vf_b"). The inverse of :func:`mlp_params_from_numpy`."""
+    return policy_params_to_numpy(params)
+
+
+def mlp_params_from_numpy(tree, device=None) -> MlpParams:
+    """Carry MLP parameters held as numpy arrays over to the port. ``tree`` is
+    a JAX ``MlpParams`` (``jax.tree.map(np.asarray, params)``) or the dict of
+    :func:`mlp_params_to_numpy`."""
+    device = dev_mod.resolve(device)
+    t = lambda x: dev_mod.tensor(np.asarray(x), device)  # noqa: E731
+    if isinstance(tree, dict):
+        def stack(tower):
+            n = len({k.split(".")[1] for k in tree if k.startswith(tower + ".")})
+            return tuple((t(tree[f"{tower}.{i}.w"]), t(tree[f"{tower}.{i}.b"])) for i in range(n))
+        get = tree.__getitem__
+    else:
+        def stack(tower):
+            return tuple((t(w), t(b)) for w, b in getattr(tree, tower))
+        get = lambda k: getattr(tree, k)  # noqa: E731
+    return MlpParams(pi_layers=stack("pi_layers"), v_layers=stack("v_layers"),
+                     **{k: t(get(k)) for k in ("pi_w", "pi_b", "logstd", "vf_w", "vf_b")})
 
 
 def adam_state_to_numpy(opt: torch.optim.Adam, params: PolicyParams) -> dict:

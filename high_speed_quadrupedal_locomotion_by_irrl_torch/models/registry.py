@@ -3,8 +3,7 @@
 Port of ``models/registry.py``. Each entry is a module exposing
 init/forward/sequence/deterministic_action/state_size with identical
 signatures; PPO looks policies up by name, mirroring the reference's
-string-keyed policy registry. ``MlpPolicy`` is known by name but not ported
-yet (``models/mlp.py``, ROADMAP.md Queue 1).
+string-keyed policy registry.
 """
 
 from __future__ import annotations
@@ -12,10 +11,9 @@ from __future__ import annotations
 from types import ModuleType
 from typing import Dict
 
-from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm
+from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm, mlp
 
 _REGISTRY: Dict[str, ModuleType] = {}
-_NOT_PORTED = {"MlpPolicy": "models/mlp.py"}
 
 
 def register_policy(name: str, module: ModuleType) -> None:
@@ -25,14 +23,12 @@ def register_policy(name: str, module: ModuleType) -> None:
 
 
 def get_policy(name: str) -> ModuleType:
-    if name in _REGISTRY:
+    try:
         return _REGISTRY[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"policy {name!r} ({_NOT_PORTED[name]}) is not in the PyTorch port yet: "
-            "see ROADMAP.md, Queue 1")
-    raise KeyError(f"unknown policy {name!r}; known: {sorted(_REGISTRY)}")
+    except KeyError:
+        raise KeyError(f"unknown policy {name!r}; known: {sorted(_REGISTRY)}") from None
 
 
 register_policy("CustomLSTMPolicy", lstm)   # the bp5 network (run_bp_v5.py:117-193)
 register_policy("LstmPolicy", lstm)
+register_policy("MlpPolicy", mlp)

@@ -11,9 +11,11 @@ leading dims (one robot for all) or leading dims that broadcast against the
 state's (per-problem robots).
 
 This is the dense per-env physics that the whole-body MPC's ``make_dynamics``
-and frozen linearizer run; it is plain PyTorch because the JAX package
-computes it outside any Pallas kernel. The env's own substep is the
-batch-in-lanes kernel of ``ops/phys_cuda.py``.
+and frozen linearizer run, and the substep of the per-env
+``envs.blackpanther.step`` (compliant contact, or hard contact through
+:func:`substep_hard`); it is plain PyTorch because the JAX package computes
+it outside any Pallas kernel. ``step_batch``'s substep is the batch-in-lanes
+kernel of ``ops/phys_cuda.py``.
 
 The JAX package pins float32 matmul precision in here (``_full_precision``);
 the port computes in float32 with TF32 off everywhere (:mod:`..device`).
@@ -29,6 +31,7 @@ import torch
 from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import linalg
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import contact as ct
+from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import hard_contact as hc
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import spatial as sp
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys.model import (
@@ -246,10 +249,8 @@ def forward_dynamics(params: RobotParams, gc: torch.Tensor, gv: torch.Tensor,
     kin = fk(params, gc)
     f_ext, toe_force_norm, toe_fn, toe_vel = contact_wrenches(
         params, kin, gv, tp, slip_vel, impulse_scale)
-    f_b, n_b = base_wrench[..., :3], base_wrench[..., 3:]
-    base = torch.cat([n_b + torch.cross(kin.p[..., 0, :], f_b.expand_as(kin.p[..., 0, :]),
-                                        dim=-1), f_b.expand_as(kin.p[..., 0, :])], dim=-1)
-    f_ext = torch.cat([f_ext[..., :1, :] + base[..., None, :], f_ext[..., 1:, :]], dim=-2)
+    f_ext = torch.cat([f_ext[..., :1, :] + _base_wrench(kin, base_wrench)[..., None, :],
+                       f_ext[..., 1:, :]], dim=-2)
     if f_ext_extra is not None:
         f_ext = f_ext + f_ext_extra
 
@@ -269,12 +270,59 @@ def forward_dynamics(params: RobotParams, gc: torch.Tensor, gv: torch.Tensor,
     return qdd, diag
 
 
-def substep_hard(*args, **kwargs):
-    """The hard (impulse) toe-contact substep needs ``phys/hard_contact.py``,
-    which is not ported yet (ROADMAP.md, Queue 1 item 3)."""
-    raise NotImplementedError(
-        "phys.dynamics.substep_hard needs phys/hard_contact.py, which is not ported yet "
-        "(ROADMAP.md, Queue 1 item 3)")
+def _base_wrench(kin: Kinematics, base_wrench: torch.Tensor) -> torch.Tensor:
+    """base_wrench = [f_world(3); n_base(3)] as a world-origin spatial force
+    (..., 6) on the base."""
+    p0 = kin.p[..., 0, :]
+    f_b, n_b = base_wrench[..., :3].expand_as(p0), base_wrench[..., 3:]
+    return torch.cat([n_b + torch.cross(p0, f_b, dim=-1), f_b], dim=-1)
+
+
+def substep_hard(params: RobotParams, gc: torch.Tensor, gv: torch.Tensor,
+                 tau_joint: torch.Tensor, base_wrench: torch.Tensor, tp, dt: float,
+                 f_ext_extra: torch.Tensor | None = None, n_iter: int = 12,
+                 lam0: torch.Tensor | None = None):
+    """One physics substep with hard (impulse) toe contact.
+
+    forward_dynamics + integrate, with the toe forces replaced by the
+    velocity-level friction-cone impulse solve of :mod:`.hard_contact`; the
+    base box keeps the compliant model. One Cholesky factor of M serves the
+    free velocity and the Delassus operator. Returns (gc2, gv2,
+    StepDiagnostics, lam): the diagnostics report the impulse-equivalent
+    normal force lam_n / dt and the post-impulse toe velocities; ``lam``
+    (..., 4, 3) warm-starts the next substep's solve."""
+    params_b = broadcast_params(params, gv.shape[:-1])
+    kin = fk(params, gc)
+    v = body_velocities(kin, gv)
+    corners = ct.box_corner_points(kin.R[..., 0, :, :], kin.p[..., 0, :])
+    corner_vel = sp.point_velocity(v[..., 0:1, :], corners)
+    box_f, _ = ct.point_contact_force(
+        corners, corner_vel, 0.0, tp, _scalar(params_b.contact_stiffness) * 0.25,
+        _scalar(params_b.contact_damping) * 0.25, _scalar(params_b.friction), 0.1, 0.0)
+    base = torch.sum(sp.force_at_point(box_f, corners), dim=-2) + _base_wrench(kin, base_wrench)
+    f_ext = torch.cat([base[..., None, :],
+                       torch.zeros_like(base)[..., None, :].expand(
+                           base.shape[:-1] + (NUM_BODIES - 1, 6))], dim=-2)
+    if f_ext_extra is not None:
+        f_ext = f_ext + f_ext_extra
+
+    h = bias_forces(params, kin, gv, f_ext)
+    M = mass_matrix(params, kin)
+    tau_j = tau_joint - JOINT_DAMPING * gv[..., 6:]
+    tau = torch.cat([torch.zeros_like(tau_j[..., :6]), tau_j], dim=-1)
+    L = linalg.cholesky_unrolled(M)
+    gv_free = gv + dt * linalg.solve_cholesky(L, (tau - h)[..., None])[..., 0]
+
+    J = hc.toe_jacobians(kin)
+    gap, basis = hc.contact_frames(tp, kin.toe_pos)
+    sol = hc.solve_impulses(M, J, gv_free, gap, basis, params_b.friction, dt, n_iter, lam0=lam0,
+                            chol=L, restitution=params_b.restitution,
+                            res_threshold=params_b.res_threshold)
+    gc2, gv2 = integrate(gc, gv, (sol.gv_plus - gv) / dt, dt)
+    lam_norm = torch.linalg.vector_norm(sol.lam, dim=-1) / dt
+    diag = StepDiagnostics(toe_pos=kin.toe_pos, toe_vel=sol.toe_vel_plus,
+                           toe_force_norm=lam_norm, toe_normal_force=sol.fn, torque=tau_joint)
+    return gc2, gv2, diag, sol.lam
 
 
 def integrate(gc: torch.Tensor, gv: torch.Tensor, qdd: torch.Tensor, dt: float):

@@ -270,9 +270,30 @@ def test_forward_dynamics_on_sampled_terrain_matches_jax():
     _close(qdd_t, qdd_j, rtol=1e-4, what="qdd on terrain")
 
 
-def test_substep_hard_names_its_missing_module():
-    with pytest.raises(NotImplementedError, match="hard_contact"):
-        tdyn.substep_hard()
+@pytest.mark.parametrize("terrain", [False, True])
+def test_substep_hard_matches_jax(terrain):
+    """One hard-contact substep (PGS warm-started, the attack spheres' extra
+    wrenches, randomized restitution) against JAX's: gc within 1e-5, gv and
+    the impulses within 1e-4."""
+    jp, tp = _params(16)
+    gc, gv, tau, wrench = _states(16, z=0.29)
+    rng = np.random.default_rng(16)
+    extra = rng.uniform(-5.0, 5.0, (B, 13, 6)).astype(np.float32)
+    lam0 = (1e-3 * np.abs(rng.normal(size=(B, 4, 3)))).astype(np.float32)
+    jt, tt = _jax_terrain(16) if terrain else (None, None)
+    if terrain:
+        want = jax.jit(jax.vmap(lambda p, g, v, t, w, tp_, e, l: jdyn.substep_hard(
+            p, g, v, t, w, tp_, 2.5e-4, e, 12, l)))(jp, gc, gv, tau, wrench, jt, extra, lam0)
+    else:
+        want = jax.jit(jax.vmap(lambda p, g, v, t, w, e, l: jdyn.substep_hard(
+            p, g, v, t, w, jtr.flat(), 2.5e-4, e, 12, l)))(jp, gc, gv, tau, wrench, extra, lam0)
+    gc2, gv2, diag, lam = tdyn.substep_hard(tp, _t(gc), _t(gv), _t(tau), _t(wrench), tt, 2.5e-4,
+                                            _t(extra), 12, _t(lam0))
+    _close(gc2, want[0], rtol=1e-5, what="gc")
+    _close(gv2, want[1], rtol=1e-4, what="gv")
+    _close(lam, want[3], rtol=1e-4, what="lam")
+    _close(diag.toe_vel, want[2].toe_vel, rtol=1e-4, what="toe_vel")
+    assert (np.asarray(want[3])[..., 0] > 0).any(), "no contact: the impulse solve went untested"
 
 
 # --- the physics properties of tests/test_dynamics.py, on the port ---------------------

@@ -233,7 +233,16 @@ def test_training_config_steps_and_resets():
 @pytest.mark.parametrize("flag", ["crucial", "hard_contact", "terrain"])
 def test_unported_modes_raise(flag):
     # terrain runs on the sampled heightmap; the analytic fractal still raises
-    over = {"terrain": True, "terrain_sampled": False} if flag == "terrain" else {flag: True}
-    cfg = tconfig.test_default().replace(**over)
-    with pytest.raises(NotImplementedError, match="terrain_sampled" if flag == "terrain" else flag):
-        tbp.env_init(cfg, 1, torch.Generator().manual_seed(0), "cpu")
+    if flag == "terrain":
+        cfg = tconfig.test_default().replace(terrain=True, terrain_sampled=False)
+        with pytest.raises(NotImplementedError, match="terrain_sampled"):
+            tbp.env_init(cfg, 1, torch.Generator().manual_seed(0), "cpu")
+        return
+    # the attacks and hard contact run on the per-env step only; step_batch refuses
+    # them, as the JAX package's asserts (blackpanther.py:809-812), and names step
+    cfg = tconfig.test_default().replace(**{flag: True})
+    gen = torch.Generator().manual_seed(0)
+    s = tbp.env_init(cfg, 2, gen, "cpu")
+    with pytest.raises(ValueError, match=f"cfg.{flag} .* use envs.blackpanther.step"):
+        tbp.step_batch(cfg, s, torch.zeros(2, 12), gen)
+    assert torch.isfinite(tbp.step(cfg, s, torch.zeros(2, 12), gen).obs).all()

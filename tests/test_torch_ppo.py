@@ -20,6 +20,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.algo import gae as tgae
 from high_speed_quadrupedal_locomotion_by_irrl_torch.algo import ppo as tppo
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import io as tio
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm as tlstm
+from high_speed_quadrupedal_locomotion_by_irrl_torch.models import mlp as tmlp
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import registry as tregistry
 from high_speed_quadrupedal_locomotion_by_irrl_tpu.algo import gae as jgae
 from high_speed_quadrupedal_locomotion_by_irrl_tpu.algo import ppo as jppo
@@ -286,8 +287,9 @@ def test_rollout_is_reproduced_by_the_jax_package(monkeypatch):
     through the JAX package's sequence, neglogp and GAE: they reproduce the
     stored values, neglogpacs and returns, and the JAX forward reproduces the
     bootstrap value. Episode statistics against a numpy count. Observation
-    noise is raised so that episodes end inside 8 steps."""
-    env_cfg = tconfig.train_default().replace(num_envs=B, obs_noise=20.0)
+    noise is raised so that episodes end inside 8 steps. The env steps on the
+    lanes physics (the per-env path: tests/test_torch_perenv.py)."""
+    env_cfg = tconfig.train_default().replace(num_envs=B, obs_noise=20.0, use_lanes_physics=True)
     cfg = tppo.PPOConfig(n_lstm=N_LSTM, n_steps=T)
     tp, jp = make_params(12, logstd=-2.0)
     ts0 = tppo.init_train_state(env_cfg, cfg, seed=3, params=tp, device="cpu")
@@ -412,8 +414,8 @@ def test_registry_names():
     assert tregistry.get_policy("CustomLSTMPolicy") is tlstm
     assert tregistry.get_policy("LstmPolicy") is tlstm
     assert tppo.PPOConfig().policy_mod is tlstm
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tregistry.get_policy("MlpPolicy")
+    assert tregistry.get_policy("MlpPolicy") is tmlp
+    assert tppo.PPOConfig(policy="MlpPolicy").policy_mod is tmlp
     with pytest.raises(KeyError, match="unknown policy"):
         tregistry.get_policy("nope")
     with pytest.raises(ValueError, match="already registered"):

@@ -1,9 +1,10 @@
 """PyTorch port: the training entry point (cli/train.py) and what it writes.
 
-Tiny runs on the CPU (``--device cpu``, 4 envs, 8 steps): the run directory,
-the metrics stream, checkpoints and CSV exports, resume, the flags that are
-not ported yet, the device policy, and the port's own YAML copies against the
-JAX package's.
+Tiny runs on the CPU (``--device cpu``, 4 envs, 8 steps: the per-env physics,
+by the JAX package's rule): the run directory, the metrics stream,
+checkpoints and CSV exports, resume, the physics path each width and flag
+picks, the flags that are not ported yet, the device policy, and the port's
+own YAML copies against the JAX package's.
 """
 
 import dataclasses
@@ -24,6 +25,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import metrics as tme
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import profiling as tprof
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import run_dir as trun_dir
 from high_speed_quadrupedal_locomotion_by_irrl_tpu import config as jconfig
+from high_speed_quadrupedal_locomotion_by_irrl_tpu.cli import train as jtrain
 from high_speed_quadrupedal_locomotion_by_irrl_tpu.models import io as jio
 
 torch.set_num_threads(1)
@@ -98,12 +100,38 @@ def test_resume_continues_the_run(first_run, tmp_path):
     np.testing.assert_allclose(row["entropy"], 12 * (-1.5 + 0.5 * (np.log(2 * np.pi) + 1)), atol=0.05)
 
 
-@pytest.mark.parametrize("flag,match", [
-    (["--no-lanes"], "per-env step"), (["--distributed"], "multi-GPU")])
+@pytest.mark.parametrize("flag,match", [(["--distributed"], "multi-GPU")])
 def test_flags_that_are_not_ported_raise(flag, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match) as e:
         ttrain.main(TINY + ["--max-updates", "1", "--log-dir", str(tmp_path)] + flag)
     assert "ROADMAP.md" in str(e.value) and not os.listdir(tmp_path)
+
+
+class _Picked(Exception):
+    """Raised in place of training, carrying the physics path chosen."""
+
+
+@pytest.mark.parametrize("flags", [[], ["--lanes"], ["--no-lanes"], ["--lanes", "--no-lanes"]])
+@pytest.mark.parametrize("num_envs", [4, 1023, 1024])
+def test_lanes_rule_picks_the_physics_as_jax_does(num_envs, flags, tmp_path, monkeypatch, capsys):
+    """cli.train picks the batch-in-lanes or the per-env physics exactly as the
+    JAX package's cli/train.py:93-118 does, and says which."""
+    def picked(*args, **kw):
+        env_cfg = next(a for a in args + tuple(kw.values()) if hasattr(a, "use_lanes_physics"))
+        raise _Picked(env_cfg.use_lanes_physics)
+    monkeypatch.setattr(jtrain, "_train", picked)
+    monkeypatch.setattr(ttrain.ppo, "learn", picked)
+    argv = ["--num-envs", str(num_envs), "--max-updates", "1"] + flags
+    with pytest.raises(_Picked) as want:
+        jtrain.main(argv + ["--log-dir", str(tmp_path / "jax")])
+    capsys.readouterr()
+    with pytest.raises(_Picked) as got:
+        ttrain.main(argv + ["--device", "cpu", "--log-dir", str(tmp_path / "port")])
+    lanes = got.value.args[0]
+    assert lanes == want.value.args[0] == ((num_envs >= 1024 or "--lanes" in flags)
+                                           and "--no-lanes" not in flags)
+    assert ("physics path: batch-in-lanes" if lanes else "physics path: per-env") \
+        in capsys.readouterr().out
 
 
 def test_terrain_curriculum_without_a_terrain_config_exits(tmp_path):
