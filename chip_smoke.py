@@ -90,7 +90,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 14. the whole-body receding-horizon loop (``mpc/runtime.wb_*``, the env step
    ``step_batch``: one physics launch a control step, asserted): (a) the
    fleet at bench.py's ``_bench_wb_rh`` configuration (128 robots x h16, 2
-   iterations, linearize_chunk 16, relin_every 2) for 25 control steps, a
+   iterations, linearize_chunk 16, relin_every 2) for 15 control steps, a
    batch row against its command alone, controller-steps/s, falls, peak
    memory, the bound, and PyTorch ops, ms and the device's busy share of a
    control step split into dense model steps, linearizer replays, Riccati,
@@ -100,10 +100,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    falls); (c) ``analysis.parity.mpc_vs_bp5`` at cmd 1 (through both
    kernels), its solve from JAX's start held to JAX's cost and mae /
    torque_mae to JAX's; (d) a 25-step ``terrain_model=True`` loop on the
-   sampled heightmap, finite and upright. Phases 14, 15 and 10-12 run in that
-   order in a second process (``--side-worker``) alongside phases 7-9 and 13,
-   whose loops, like theirs, are host-bound on one Python thread with the
-   card mostly idle;
+   sampled heightmap, finite and upright. Phases 14, 15, 10-12, 16a and 16d
+   run in that order in a second process (``--side-worker``) alongside phases
+   7, 8, 16b, 16c, 9 and 13, whose loops, like theirs, are host-bound on one
+   Python thread with the card mostly idle;
 15. the per-env control step (``envs.blackpanther.step``: the dense per-env
    physics in plain PyTorch, no physics launch, asserted; ``--perenv-worker
    PATH`` runs this phase alone): (a) the flagship at cmd 1-5
@@ -119,7 +119,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    with ``MlpPolicy`` through PPO3 and ``ppo.learn`` (no LSTM launch); (e)
    ``step`` (compliant and hard) against ``step_batch`` at 200 and 1024 envs:
    ms, PyTorch ops and synchronized ms a control step by site, busy share,
-   peak memory (recorded).
+   peak memory (recorded);
+16. the rest of ``cli/test.py`` (``--phase16-worker PATH`` runs phases 2, 3
+   and 16 alone): (a) the reward landscape over the three 2×LSTM(48) anchors
+   at 2 m/s, step 0.01 (5151 blends as one batch through the per-row LSTM
+   kernel and the physics kernel, 750 steps; 2 per-row launches and 1
+   physics launch a step, asserted), the per-row kernel against its plain
+   twin over the first 50 steps, the 15 blends of step 0.25 against JAX's
+   (alive_len, accumulated terms), ms a step, busy share, peak memory;
+   (b) ``--kappa-entropy`` at cmd 1, 3, 5 with 4096 episodes for 500 steps;
+   (c) ``--kappa`` at cmd 1-5, kick 1 m/s, 1500 steps as one batch, κ held to
+   JAX's recovery_sweep; (d) one ``cli.test`` call with ``--torque --wc --ss
+   --corr --delay 0,1,2,5 --save-energy-data --dump-info --viewer`` at vx 2,
+   then ``value_pca``, ``spectrogram`` and ``toe_trajectories`` on a
+   rollout's log, and ``--teleop --serve`` for 200 steps read by a
+   ``StateClient``.
 
 Phase 3 also holds the control step with its Convert2Torque inputs (a torque
 feedforward and a PD scale) against its plain loop, at the closed loop's
@@ -128,6 +142,9 @@ of 0 and a scale of 1; and the control step on terrain (the heightmap's sum
 and 16 samples against the CPU's, then 1024 envs at offsets spread over the
 whole map, z_scale 0.1) against its plain loop at (c)'s tolerances, with
 z_scale 0 giving the flat kernel's bits, timed with and without terrain;
+and the per-row LSTM launch (both towers, a weight set a row) against its
+plain version at the landscape's 1326 and 5151 rows and
+two ragged batches, timed at 1326 and 5151 against its bytes bound;
 and the single substep at the whole-body MPC's dt = 1 ms on the inputs of a
 bench-shape lanes solve's launches at each of its lane widths (64; the line
 search's 512; the FD sweep's 6272), with the same non-finite lanes on both
@@ -157,6 +174,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from high_speed_quadrupedal_locomotion_by_irrl_torch import config
 from high_speed_quadrupedal_locomotion_by_irrl_torch.algo import ppo, ppo3
 from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import eval as ev
+from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import landscape
 from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import parity
 from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import blackpanther as bp
 from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import vec
@@ -178,6 +196,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import hard_contact
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import terrain
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import metrics as metrics_io
+from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import native
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 ARTIFACT = os.path.join(ROOT, "artifacts", "irrl_tpu_relaxed_4e8")
@@ -532,9 +551,9 @@ MPC_SUBSTEP_RTOL = 1e-4
 # fixed before the phase's first run on the H100.
 # (a) the fleet at bench.py's _bench_wb_rh (bench.py:214-245): 128 robots, horizon 16, 2
 # iterations, linearize_chunk 16, the Jacobians of every 2nd iteration, the frozen
-# linearizer, commands 0.5 + 2.5 (i % 8) / 7; 25 control steps where bench.py takes 100
+# linearizer, commands 0.5 + 2.5 (i % 8) / 7; 15 control steps where bench.py takes 100
 # (the only cut)
-WB_FLEET_B, WB_FLEET_STEPS = 128, 25
+WB_FLEET_B, WB_FLEET_STEPS = 128, 15
 WB_FLEET_MC = dict(horizon=16, n_iter=2, model_substeps=2, linearize_chunk=16, n_alphas=4,
                    relin_every=2, linearizer="frozen")
 # row 1 of a 2-command batch against that command alone over 10 steps: gc within 1e-4
@@ -884,6 +903,75 @@ PERENV_TRAIN_UPDATES, PERENV_TRAIN_STEPS, PERENV_VARIANT_STEPS = 2, 40, 20
 PPO3_STEPS = 30
 PERENV_TIMING_STEPS = 3
 PERENV_LOG_DIR = os.path.join(ROOT, "runs", "chip_smoke_perenv")
+
+# the per-row LSTM kernel (lstm_cell_pair_rows_kernel) at the landscape's batches: 1326 blends
+# at JAX's default step 0.02, 5151 at the reference total_reward.txt's step 0.01
+ROWS_B = (1326, 5151)
+# phase 16: the rest of cli/test.py. Every limit below was fixed before the phase's first run
+# on the H100.
+# (a) the reward landscape: the three 2xLSTM(48) anchors at 2 m/s, step 0.01 (5151 blends, one
+# batch), 750 steps; its 15 blends of step 0.25 (rows of the 0.01 grid, bit for bit) held to
+# JAX's _landscape_batch on the CPU (`tests/test_torch_landscape.py refs`): alive_len equal,
+# each accumulated term within max(LANDSCAPE_RTOL |JAX|, 2 x JAX's 1e-6 m nudge spread) +
+# LANDSCAPE_ATOL (the CPU test's 2e-3 relative at 30 steps; the spread is at most 1.1e-3
+# relative); the per-row kernel against its plain twin over the first LANDSCAPE_TWIN_STEPS
+# steps, both fed the kernel's trajectory (one step of the cell from the same inputs)
+LANDSCAPE_ANCHORS = [os.path.join(ROOT, "artifacts", a) for a in
+                     ("irrl_tpu_imitation", "irrl_tpu_relaxed", "irrl_tpu_relaxed_4e8")]
+LANDSCAPE_STEP, LANDSCAPE_CHECK_STEP, LANDSCAPE_STEPS, LANDSCAPE_VX = 0.01, 0.25, 750, 2.0
+LANDSCAPE_TWIN_STEPS, LANDSCAPE_TWIN_ATOL = 50, 1e-4
+LANDSCAPE_RTOL, LANDSCAPE_ATOL = 2e-3, 1e-3
+LANDSCAPE_PROF_STEPS = 10
+# (b) --kappa-entropy at cmd 1, 3, 5, 4096 episodes, 500 steps (recorded)
+ENTROPY_COMMANDS, ENTROPY_EPISODES, ENTROPY_STEPS = "1,3,5", 4096, 500
+# (c) --kappa at cmd 1-5, kick 1 m/s, 1500 steps (the five rows one batch): kappa within
+# max(KAPPA_TOL, 2 x JAX's nudge spread) of JAX's recovery_sweep on the CPU
+# (`tests/test_torch_robustness.py kappa`), survival equal
+KAPPA_STEPS, KAPPA_TOL = 1500, 0.25
+# (d) one cli.test call with the single-rollout modes at vx 2 [300 steps of the CLI's 750], then
+# value_pca, spectrogram and toe_trajectories on a rollout, and --teleop --serve for 200 steps
+CLI_STEPS, TELEOP_STEPS = 300, 200
+CLI_OUT_DIR = os.path.join(ROOT, "runs", "chip_smoke_cli")
+JAX_LANDSCAPE = {
+    "alive_len": [750, 750, 750, 750, 750, 750, 750, 750, 750, 750, 750, 750, 750, 750, 750],
+    "alive_nudge_spread": [0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    "terms": [
+        [0.0, 145.889023, 129.365982, 1.57447844e-09, 86.9301147, 115.307068, 55.9827385, 13.4370613],
+        [0.0, 146.116394, 106.061348, 3.88890781e-10, 117.031616, 73.1642456, 59.543438, 1.82656217],
+        [0.0, 147.056595, 93.274147, 1.36620548e-10, 134.751633, 59.12677, 58.8694038, 1.64589071],
+        [0.0, 147.534775, 121.092926, 8.78384795e-11, 128.64328, 49.7518921, 56.591629, 0.76142931],
+        [0.0, 145.146118, 76.6964874, 9.34765945e-11, 107.452774, 40.8931389, 54.5287247, 0.220627233],
+        [0.0, 146.271378, 109.589127, 3.45772161e-10, 117.631805, 69.6138229, 59.5401688, 2.24536824],
+        [0.0, 147.163269, 100.209061, 1.2233882e-10, 133.718002, 57.4250679, 59.1108742, 1.87527585],
+        [0.0, 147.658798, 124.433479, 8.41825429e-11, 126.527374, 48.1391106, 56.5825157, 0.764269054],
+        [0.0, 144.272629, 76.9721909, 1.08406388e-10, 104.538742, 40.0132561, 54.4206963, 0.0736674145],
+        [0.0, 147.244217, 105.84314, 1.14800905e-10, 132.112396, 52.7742958, 58.7774315, 1.98778415],
+        [0.0, 147.768387, 126.600563, 8.30512811e-11, 124.143555, 46.1854858, 56.567028, 0.905103385],
+        [0.0, 143.586655, 78.4788284, 1.24223021e-10, 101.643364, 38.4002571, 54.4057465, 0.0501897931],
+        [0.0, 147.875031, 127.723167, 8.33722535e-11, 121.321602, 42.9776115, 56.6555977, 0.879066467],
+        [0.0, 143.030533, 80.5628662, 1.41789552e-10, 98.8184586, 37.5658264, 54.2377853, 0.0479868464],
+        [0.0, 142.317886, 81.4967728, 1.64845637e-10, 96.9759216, 34.7900925, 54.21101, 0.0490335152],
+    ],
+    "terms_nudge_spread": [[0.0, 7.63e-05, 0.000198, 8.08e-14, 4.58e-05, 2.29e-05, 3.43e-05, 7.63e-06],
+        [0.0, 6.1e-05, 7.63e-05, 1.3e-14, 7.63e-06, 1.53e-05, 1.14e-05, 2.74e-06],
+        [0.0, 0.000305, 0.016, 8.13e-15, 0.000137, 0.000572, 0.00118, 9.06e-05],
+        [0.0, 0.000168, 0.00169, 1.69e-15, 1.53e-05, 0.00037, 0.000156, 1.73e-05],
+        [0.0, 0.000137, 0.0019, 2.88e-15, 0.000648, 0.000629, 8.39e-05, 3.64e-06],
+        [0.0, 9.16e-05, 3.05e-05, 1.27e-14, 2.29e-05, 1.53e-05, 3.81e-06, 1.67e-06],
+        [0.0, 7.63e-05, 0.000107, 3.82e-15, 1.53e-05, 1.53e-05, 1.53e-05, 7.51e-06],
+        [0.0, 6.1e-05, 7.63e-05, 1.78e-15, 2.29e-05, 9.16e-05, 1.14e-05, 1.08e-05],
+        [0.0, 0.000198, 0.00175, 3.32e-15, 0.000534, 0.000401, 0.00013, 2.5e-06],
+        [0.0, 9.16e-05, 6.87e-05, 2.9e-15, 1.53e-05, 1.53e-05, 7.63e-06, 8.34e-06],
+        [0.0, 6.1e-05, 0.000122, 1.66e-15, 3.05e-05, 8.39e-05, 7.63e-06, 9.36e-06],
+        [0.0, 0.000183, 0.00163, 3.44e-15, 0.000534, 0.000477, 5.34e-05, 3.5e-07],
+        [0.0, 6.1e-05, 0.000183, 1.62e-15, 1.53e-05, 8.39e-05, 7.63e-06, 1.22e-05],
+        [0.0, 0.000992, 0.0148, 7.79e-14, 0.0146, 0.0167, 0.0241, 4.56e-05],
+        [0.0, 0.000183, 0.000931, 5.55e-15, 0.000427, 0.000317, 4.58e-05, 1.33e-06]]}
+JAX_KAPPA = {1.0: {"kappa": -6.0674382, "survived": False, "nudge_spread": 6.61e-06},
+             2.0: {"kappa": -3.52340557, "survived": False, "nudge_spread": 1.47e-05},
+             3.0: {"kappa": -5.87886119, "survived": True, "nudge_spread": 0.000138},
+             4.0: {"kappa": -3.13779692, "survived": True, "nudge_spread": 0.0113},
+             5.0: {"kappa": -2.97878315, "survived": True, "nudge_spread": 0.00039}}
 
 
 def log(msg: str) -> None:
@@ -1574,6 +1662,62 @@ def _check_lstm(rec: dict) -> None:
                             **{f"cell_{k}": v for k, v in cell.items()}, per_width=per_d)
 
 
+def _lstm_rows_inputs(B: int, d: int, n: int, seed: int, masked: bool):
+    """Two towers' weight sets with one set a row, and strided views of one
+    packed state, as forward() hands them to the per-row launch; the mask is
+    the landscape's all-zero no-reset mask unless ``masked``."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    r = lambda *s, scale=1.0: scale * torch.randn(s, generator=g, device=DEVICE)  # noqa: E731
+    mk = lambda: lstm.LSTMWeights(wx=r(B, d, 4 * n, scale=0.2),  # noqa: E731
+                                  wh=r(B, n, 4 * n, scale=0.2), b=r(B, 4 * n, scale=0.1))
+    w0, w1, state, xs = mk(), mk(), r(B, 4 * n), r(B, 2 * d + 3)
+    mask = ((torch.rand(B, generator=g, device=DEVICE) < 0.4).float() if masked
+            else torch.zeros(B, device=DEVICE))
+    return (w0, w1, xs[:, :d], xs[:, d:2 * d], state[:, :n], state[:, n:2 * n],
+            state[:, 2 * n:3 * n], state[:, 3 * n:], mask)
+
+
+def _check_lstm_rows(rec: dict) -> None:
+    """lstm_cell_pair_rows_kernel (both towers, one weight set a row) against
+    its plain version, at the landscape's batches and two ragged ones, with
+    and without resets; timed at the
+    landscape's batches. No single PyTorch call computes an LSTM cell with
+    per-row weights: no library yardstick."""
+    n, errs, per = 48, [], {}
+    for d in (35, 48):
+        for B in ROWS_B + (37, 5):
+            for masked in (False, True):
+                args = _lstm_rows_inputs(B, d, n, seed=B + d + masked, masked=masked)
+                want = lstm.lstm_cell_pair_rows(*args)
+                got = lstm_cuda.lstm_cell_pair_rows(*args)
+                torch.cuda.synchronize()
+                for g_, w_ in zip(got, want):
+                    torch.testing.assert_close(g_, w_, atol=1e-5, rtol=0)
+                errs.append(max_err(got, want))
+        for B in ROWS_B:
+            args = _lstm_rows_inputs(B, d, n, seed=d, masked=False)
+            # every weight read once (both towers), x, h and c of each tower, the mask, c' and h'
+            nbytes = 4 * (2 * B * (d + n + 1) * 4 * n + 2 * B * (d + 2 * n) + B + 4 * B * n)
+            # the gate products' FMAs (torch.bmm, which OpCounter does not count) + the rest
+            ops = 2 * 2 * B * (d + n) * 4 * n + count_ops(lambda: lstm.lstm_cell_pair_rows(*args))
+            kt = timings(lambda: lstm_cuda.lstm_cell_pair_rows(*args),
+                         kernel="lstm_cell_pair_rows_kernel")
+            pt = timings(lambda: lstm.lstm_cell_pair_rows(*args))
+            bound = bound_ms(nbytes, ops)
+            per[f"B={B} d={d}"] = dict(ms=kt["ms"], call_ms=kt["call_ms"], plain_ms=pt["ms"],
+                                       plain_call_ms=pt["call_ms"], bound_ms=bound[0],
+                                       bound_by=bound[1], library_ms=None, bytes=nbytes, ops=ops,
+                                       time_source={"kernel": kt["source"],
+                                                    "plain": pt["source"]})
+            p = per[f"B={B} d={d}"]
+            log(f"[3] lstm_cell_pair_rows B={B} d={d} (two towers, a weight set a row): kernel "
+                f"{p['ms']:.4f} ms on the device ({kt['source']}; {p['call_ms']:.4f} ms a wrapper "
+                f"call), plain {p['plain_ms']:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}: "
+                f"{nbytes} B, {ops} ops), {bound[0] / p['ms']:.1%} of it; max |err| "
+                f"{max(errs):.3g}")
+    rec["lstm_cell_rows"] = dict(entry_record(per), max_abs_err=max(errs))
+
+
 def entry_record(per_launch: dict) -> dict:
     """The times of an entry point that the main path launches at more than
     one shape: ms, plain_ms, bound_ms, bound_by and library_ms are those of
@@ -1781,6 +1925,7 @@ def phase_kernels() -> dict:
     _check_phys_terrain(rec)
     _check_phys_mpc(rec)
     _check_lstm(rec)
+    _check_lstm_rows(rec)
     _check_lstm_training(rec)
     return rec
 
@@ -1790,16 +1935,20 @@ def phase_kernels() -> dict:
 def reset_counts() -> None:
     phys_cuda.launches = 0
     lstm_cuda.launches = lstm_cuda.train_launches = lstm_cuda.bwd_launches = 0
+    lstm_cuda.rows_launches = 0
 
 
 def read_counts() -> dict:
     """Every wrapper's launch count, by the kernel's name in the `kernels` line."""
     torch.cuda.synchronize()
     return {"phys_substep": phys_cuda.launches, "lstm_cell": lstm_cuda.launches,
-            "lstm_cell_train": lstm_cuda.train_launches, "lstm_cell_bwd": lstm_cuda.bwd_launches}
+            "lstm_cell_train": lstm_cuda.train_launches, "lstm_cell_bwd": lstm_cuda.bwd_launches,
+            "lstm_cell_rows": lstm_cuda.rows_launches}
 
 
 def check_counts(counts: dict, want: dict, what: str) -> None:
+    """``want`` names the kernels launched; every other count must be 0."""
+    want = {k: want.get(k, 0) for k in counts}
     if counts != want:
         raise RuntimeError(f"{what}: launches {counts}, expected {want}")
     log(f"[{what}] launches: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
@@ -2714,7 +2863,8 @@ def phase_wholebody() -> dict:
                              "frozen_launches": frozen_launches, "fd_launches": fd_launches}
     out["launches"] = {"phys_substep": out["lanes_frozen"]["launches"]["phys_substep"]
                        + out["lanes_fd"]["launches"]["phys_substep"],
-                       "lstm_cell": 0, "lstm_cell_train": 0, "lstm_cell_bwd": 0}
+                       "lstm_cell": 0, "lstm_cell_train": 0, "lstm_cell_bwd": 0,
+                       "lstm_cell_rows": 0}
     return out
 
 
@@ -3254,6 +3404,270 @@ def phase_perenv_timing() -> dict:
     return out
 
 
+# --- phase 16 -----------------------------------------------------------------
+
+class plain_rows:
+    """Inside, models.lstm.forward runs per-row weights through the plain
+    twin of the per-row kernel."""
+
+    def __enter__(self):
+        self.saved = lstm_cuda.lstm_cell_pair_rows
+        lstm_cuda.lstm_cell_pair_rows = lstm.lstm_cell_pair_rows
+
+    def __exit__(self, *exc):
+        lstm_cuda.lstm_cell_pair_rows = self.saved
+
+
+def _rows_twin(cfg, stacked, cmd, steps: int) -> dict:
+    """The landscape's closed loop for ``steps`` steps on the kernel, with the
+    plain twin computing each step's action and LSTM state from the same
+    inputs: the largest differences."""
+    B = stacked.pi_b.shape[0]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    cmd = torch.tensor(cmd, device=DEVICE).expand(B, 3)
+    state = bp.env_init(cfg, B, gen, DEVICE).replace(command=cmd, command_filtered=cmd)
+    obs = bp.observe(cfg, state)
+    h = torch.zeros((B, lstm.state_size([w.wh.shape[-2] for w in stacked.pi_lstm])),
+                    device=DEVICE)
+    no_reset = torch.zeros(B, device=DEVICE)
+    cmd_n = (cmd - bp.obs_mean(cfg, DEVICE)[:3]) / bp.obs_std(cfg, DEVICE)[:3]
+    err_a = err_s = 0.0
+    for _ in range(steps):
+        o = torch.cat([cmd_n, obs[:, 3:]], dim=-1)
+        a, h_new = lstm.deterministic_action(stacked, o, h, no_reset)
+        with plain_rows():
+            a_p, h_p = lstm.deterministic_action(stacked, o, h, no_reset)
+        err_a = max(err_a, float((a - a_p).abs().max()))
+        err_s = max(err_s, float((h_new - h_p).abs().max()))
+        out = bp.step_batch(cfg, state.replace(command=cmd, command_filtered=cmd), a, gen)
+        state, obs, h = out.state, out.obs, h_new
+    return {"action": err_a, "lstm_state": err_s}
+
+
+def phase_landscape() -> dict:
+    """(a) the reward landscape at 5151 blends as one batch through the per-row
+    kernel and the physics kernel, held to JAX on its 15-blend coarse grid."""
+    cfg = config.test_default()
+    anchors = [mio.load_bp5_csv(a, device=DEVICE) for a in LANDSCAPE_ANCHORS]
+    w = landscape.simplex_grid(LANDSCAPE_STEP)
+    cmd = [LANDSCAPE_VX, 0.0, 0.0]
+    stacked = landscape.blend_params(anchors, w)
+    twin = _rows_twin(ev._fixed_command_cfg(cfg), stacked, cmd, LANDSCAPE_TWIN_STEPS)
+    log(f"[16a] per-row kernel against its plain twin over {LANDSCAPE_TWIN_STEPS} steps of "
+        f"{len(w)} blends: max |err| action {twin['action']:.3g}, LSTM state "
+        f"{twin['lstm_state']:.3g} (limit {LANDSCAPE_TWIN_ATOL:g})")
+    if not max(twin.values()) <= LANDSCAPE_TWIN_ATOL:
+        raise RuntimeError(f"phase 16a: the per-row kernel parts from its plain twin: {twin}")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        landscape._landscape_batch(cfg, stacked, cmd, gen, LANDSCAPE_PROF_STEPS, DEVICE)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    rows_ms = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "lstm_cell_pair_rows_kernel" in e.name)
+    dev = _kernel_device_ms(prof)
+    del stacked
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = landscape.reward_landscape(cfg, *anchors, command=cmd, step=LANDSCAPE_STEP,
+                                     n_steps=LANDSCAPE_STEPS, gen=gen, chunk=len(w),
+                                     device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() - before
+    check_counts(counts, {"phys_substep": LANDSCAPE_STEPS,
+                          "lstm_cell_rows": LSTM_LAUNCHES_PER_STEP * LANDSCAPE_STEPS}, "16a")
+    if not (np.isfinite(res["terms"]).all() and res["terms"].shape == (len(w), 8)):
+        raise RuntimeError("phase 16a: non-finite or misshapen landscape terms")
+    coarse = landscape.simplex_grid(LANDSCAPE_CHECK_STEP)
+    idx = [int(np.flatnonzero((w == r).all(1))[0]) for r in coarse]
+    want = np.asarray(JAX_LANDSCAPE["terms"])
+    spread = np.asarray(JAX_LANDSCAPE["terms_nudge_spread"])
+    got = res["terms"][idx].astype(np.float64)
+    tol = np.maximum(LANDSCAPE_RTOL * np.abs(want), 2 * spread) + LANDSCAPE_ATOL
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-9)
+    alive_ok = bool((res["alive_len"][idx] == np.asarray(JAX_LANDSCAPE["alive_len"])).all())
+    ms = wall / LANDSCAPE_STEPS * 1e3
+    busy = dev["all"] / prof_wall if dev["all"] > 0 else None
+    rec = {"blends": len(w), "wall_s": wall, "ms_per_step": ms, "peak_memory_bytes": peak,
+           "device_busy": busy, "rows_kernel_ms_per_step": rows_ms / LANDSCAPE_PROF_STEPS,
+           "device_ms_per_step": dev["all"] / LANDSCAPE_PROF_STEPS, "twin_max_abs_err": twin,
+           "coarse_terms": got.tolist(), "coarse_alive_len": res["alive_len"][idx].tolist(),
+           "coarse_max_abs_err": float(np.abs(got - want).max()),
+           "coarse_max_rel_err": float(rel[np.abs(want) > 1e-3].max()),
+           "coarse_worst_over_tol": float((np.abs(got - want) / tol).max()),
+           "alive_short": int((res["alive_len"] < LANDSCAPE_STEPS).sum()),
+           "launches": counts}
+    log(f"[16a] {len(w)} blends x {LANDSCAPE_STEPS} steps in {wall:.1f} s: {ms:.2f} ms a control "
+        f"step; over {LANDSCAPE_PROF_STEPS} profiled steps the device busy "
+        f"{'not measured' if busy is None else f'{busy:.3f}'}, the per-row kernel "
+        f"{rec['rows_kernel_ms_per_step']:.4f} ms a step (2 launches), all device time "
+        f"{rec['device_ms_per_step']:.4f} ms; peak {peak / 2 ** 20:.1f} MiB; "
+        f"{rec['alive_short']} blends fell")
+    log(f"[16a] the {len(idx)} blends of step {LANDSCAPE_CHECK_STEP} against JAX: alive_len "
+        f"{'equal' if alive_ok else 'DIFFERS'}, terms within {rec['coarse_max_abs_err']:.4g} "
+        f"(relative {rec['coarse_max_rel_err']:.3g} where |JAX| > 1e-3; worst "
+        f"{rec['coarse_worst_over_tol']:.3f} of its limit)")
+    if not alive_ok or not (np.abs(got - want) <= tol).all():
+        raise RuntimeError("phase 16a: the coarse grid misses JAX's landscape (see the log)")
+    return rec
+
+
+def _cli_run(argv: list, want: dict, tag: str):
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cli_test.main(argv + ["--device", DEVICE])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(counts, want, tag)
+    return res, wall, counts
+
+
+def phase_entropy_kappa() -> dict:
+    """(b) ``cli.test --kappa-entropy`` at cmd 1, 3, 5 with 4096 episodes each."""
+    n_cmd = len(ENTROPY_COMMANDS.split(","))
+    res, wall, counts = _cli_run(
+        ["--model", ARTIFACT, "--kappa-entropy", "--commands", ENTROPY_COMMANDS, "--ensemble",
+         str(ENTROPY_EPISODES), "--steps", str(ENTROPY_STEPS)],
+        {"phys_substep": n_cmd * ENTROPY_STEPS,
+         "lstm_cell": LSTM_LAUNCHES_PER_STEP * n_cmd * ENTROPY_STEPS}, "16b")
+    rows = res["entropy_kappa"]
+    for r in rows:
+        log(f"[16b] cmd {r['command']:.0f}: entropy-kappa {r['kappa']:+.4f} +- "
+            f"{r['kappa_err']:.4f} log_e/s, v {r['v_mean']:.4f}, survival {r['survival']:.4f}")
+        if not (np.isfinite([r["kappa"], r["v_mean"]]).all() and 0.0 <= r["survival"] <= 1.0):
+            raise RuntimeError(f"phase 16b: cmd {r['command']}: {r}")
+    ms = wall / (n_cmd * ENTROPY_STEPS) * 1e3
+    log(f"[16b] {n_cmd} x {ENTROPY_EPISODES} episodes x {ENTROPY_STEPS} steps in {wall:.1f} s: "
+        f"{ms:.2f} ms a control step of {ENTROPY_EPISODES} envs")
+    return {"rows": rows, "wall_s": wall, "ms_per_step": ms, "launches": counts}
+
+
+def phase_kappa() -> dict:
+    """(c) ``cli.test --kappa`` at cmd 1-5, kick 1 m/s: the five rows one
+    batch of 1500 steps, held to JAX's recovery_sweep."""
+    res, wall, counts = _cli_run(
+        ["--model", ARTIFACT, "--kappa", "--commands", "1,2,3,4,5", "--kick", "1.0"],
+        {"phys_substep": KAPPA_STEPS, "lstm_cell": LSTM_LAUNCHES_PER_STEP * KAPPA_STEPS}, "16c")
+    failed = []
+    for r in res["recovery"]:
+        want = JAX_KAPPA[r["command"]]
+        tol = max(KAPPA_TOL, 2 * want["nudge_spread"])
+        r["jax"], r["tol"] = want, tol
+        log(f"[16c] cmd {r['command']:.0f}: kappa {r['kappa']:+.4f} log_e/s (JAX "
+            f"{want['kappa']:+.4f}, diff {r['kappa'] - want['kappa']:+.4f}, limit {tol:.3f}), "
+            f"r2 {r['r2']:.3f}, {'survived' if r['survived'] else 'fell'} (JAX "
+            f"{'survived' if want['survived'] else 'fell'})")
+        if not abs(r["kappa"] - want["kappa"]) <= tol or r["survived"] != want["survived"]:
+            failed.append(r["command"])
+    ms = wall / KAPPA_STEPS * 1e3
+    log(f"[16c] 5 envs x {KAPPA_STEPS} steps in {wall:.1f} s: {ms:.2f} ms a control step")
+    if failed:
+        raise RuntimeError(f"phase 16c: commands {failed} miss JAX's kappa (see the log)")
+    return {"rows": res["recovery"], "wall_s": wall, "ms_per_step": ms, "launches": counts}
+
+
+def _read_snapshot(port: int, out: dict, deadline: float) -> None:
+    """A viewer: connect to the state server on ``port`` once it listens and
+    read one published snapshot."""
+    while time.perf_counter() < deadline:
+        try:
+            cli = native.StateClient(port)
+        except OSError:
+            time.sleep(0.01)
+            continue
+        try:
+            while time.perf_counter() < deadline:
+                if cli.meta() > 0:
+                    out["meta"] = cli.meta()
+                    out["seq"], out["snapshot"] = cli.state()
+                    return
+                time.sleep(0.001)
+        finally:
+            cli.close()
+
+
+def phase_cli_modes() -> dict:
+    """(d) one ``cli.test`` call with the single-rollout modes, the analysis
+    of a rollout's log, and ``--teleop --serve`` read by a viewer."""
+    import socket
+    import threading
+
+    os.makedirs(CLI_OUT_DIR, exist_ok=True)
+    out = lambda name: os.path.join(CLI_OUT_DIR, name)  # noqa: E731
+    delays = "0,1,2,5"
+    n_rollouts = 4 + len(delays.split(",")) + 2   # torque, wc, ss, corr; delays; viewer; energy
+    res, wall, counts = _cli_run(
+        ["--model", ARTIFACT, "--vx", "2", "--steps", str(CLI_STEPS), "--torque", "--wc", "--ss",
+         "--corr", "--delay", delays, "--save-energy-data", out("energy"), "--dump-info",
+         out("info.csv"), "--viewer", out("viewer.html"), "--save-data", out("data")],
+        {"phys_substep": n_rollouts * CLI_STEPS,
+         "lstm_cell": LSTM_LAUNCHES_PER_STEP * n_rollouts * CLI_STEPS}, "16d")
+    scalars = [res["torque_power"]["mean_power"], res["torque_power"]["tcot"],
+               res["work_condition"]["violation_rate"], res["lstm_corr_mean_abs"],
+               *res["state_space"]["q_range"], *(r["v_mean"] for r in res["latency"])]
+    files = [out(f) for f in ("info.csv", "viewer.html", "data/results.json",
+                              "energy/inverse_mass.npy", "data/state_space_q.npy")]
+    minv = np.load(out("energy/inverse_mass.npy"))
+    if not (np.isfinite(scalars).all() and all(os.path.getsize(f) > 0 for f in files)
+            and minv.shape == (CLI_STEPS, 18, 18) and np.isfinite(minv).all()):
+        raise RuntimeError(f"phase 16d: {res}")
+    log(f"[16d] {n_rollouts} rollouts x {CLI_STEPS} steps in {wall:.1f} s "
+        f"({wall / (n_rollouts * CLI_STEPS) * 1e3:.2f} ms a control step): mean power "
+        f"{res['torque_power']['mean_power']:.1f} W, TCoT {res['torque_power']['tcot']:.3f}, "
+        f"envelope violations {res['work_condition']['violation_rate']:.4f}, |corr| "
+        f"{res['lstm_corr_mean_abs']:.3f}, v at latency " + ", ".join(
+            f"{r['latency_ms']:.0f} ms {r['v_mean']:.3f}" for r in res["latency"]))
+    params = mio.load_bp5_csv(ARTIFACT, device=DEVICE)
+    rollout_log = ev.policy_rollout(ev._fixed_command_cfg(config.test_default()), params,
+                                    np.array([2.0, 0.0, 0.0]), torch.Generator(device=DEVICE),
+                                    CLI_STEPS, device=DEVICE)
+    pca = ev.value_pca(params, rollout_log)
+    spec = ev.spectrogram(rollout_log.gv[:, 8].cpu().numpy(), config.test_default().control_dt)
+    toes = ev.toe_trajectories(rollout_log)
+    if not (np.isfinite(pca["coords"]).all() and np.isfinite(spec["db"]).all()
+            and toes.shape == (CLI_STEPS, 4, 3) and np.isfinite(toes).all()):
+        raise RuntimeError("phase 16d: non-finite value_pca, spectrogram or toe trajectories")
+    log(f"[16d] value_pca: PC1+PC2 explain {pca['explained'].sum():.3f}; spectrogram "
+        f"{spec['db'].shape}; toe z range {toes[..., 2].min():.3f}..{toes[..., 2].max():.3f} m")
+    with socket.socket() as sock:   # a free port for the server
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    seen = {}
+    viewer = threading.Thread(target=_read_snapshot,
+                              args=(port, seen, time.perf_counter() + 120.0))
+    viewer.start()
+    try:
+        tele, tele_wall, tele_counts = _cli_run(
+            ["--model", ARTIFACT, "--teleop", "--serve", str(port), "--steps", str(TELEOP_STEPS)],
+            {"phys_substep": TELEOP_STEPS, "lstm_cell": LSTM_LAUNCHES_PER_STEP * TELEOP_STEPS},
+            "16d teleop")
+    finally:
+        viewer.join(timeout=130.0)
+    if seen.get("meta") != 44 or not np.isfinite(seen["snapshot"]).all():
+        raise RuntimeError(f"phase 16d: the viewer read {seen}")
+    log(f"[16d] teleop {tele['teleop']['steps']} steps in {tele_wall:.1f} s "
+        f"({tele_wall / TELEOP_STEPS * 1e3:.2f} ms a step, B = 1): mean v "
+        f"{[round(v, 3) for v in tele['teleop']['v_mean']]}; a viewer read snapshot "
+        f"{seen['seq']} of {seen['meta']} floats, base height {seen['snapshot'][2]:.3f} m")
+    return {"results": res, "wall_s": wall, "launches": counts,
+            "value_pca_explained": pca["explained"].tolist(),
+            "teleop": {**tele["teleop"], "wall_s": tele_wall, "launches": tele_counts,
+                       "snapshot_seq": seen["seq"], "snapshot_floats": seen["meta"]}}
+
+
+def _phase16() -> list:
+    return [("16a", phase_landscape), ("16b", phase_entropy_kappa), ("16c", phase_kappa),
+            ("16d", phase_cli_modes)]
+
+
 def _phase14() -> list:
     params = mio.load_bp5_csv(ARTIFACT, device=DEVICE)
     return [("14a", phase_wb_fleet), ("14b", phase_wb_track),
@@ -3274,10 +3688,10 @@ def _phases10to12() -> list:
 
 def worker(out_path: str, phases: list) -> int:
     """Run ``phases`` ((name, fn) pairs) and write their records to
-    ``out_path``. The main run starts one such process with phases 14, 15 and
-    10-12 (``--side-worker``) alongside phases 7-9 and 13 (host-bound loops of
-    one Python thread each, the card mostly idle), so the script stays inside
-    its time limit; each path's launches are counted in this process, around
+    ``out_path``. The main run starts one such process with phases 14, 15,
+    10-12, 16a and 16d (``--side-worker``) alongside phases 7, 8, 16b, 16c, 9
+    and 13 (host-bound loops of one Python thread each, the card mostly
+    idle), so the script stays inside its time limit; each path's launches are counted in this process, around
     its own run. (Phase 15 in a third process slowed the others by a third:
     PERF.md.)"""
     seconds, rec = {}, {}
@@ -3292,8 +3706,8 @@ def worker(out_path: str, phases: list) -> int:
 
 
 class _SideWorker:
-    """The second process of :func:`worker` (``--side-worker``, phases 14, 15
-    and 10-12): started on entry, waited for by :meth:`result`, killed if the
+    """The second process of :func:`worker` (``--side-worker``, phases 14, 15,
+    10-12, 16a and 16d): started on entry, waited for by :meth:`result`, killed if the
     main run leaves before that."""
 
     def __enter__(self):
@@ -3321,10 +3735,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU")
     ap.add_argument("--out", default=None, help="also write all measurements to this JSON file")
     ap.add_argument("--side-worker", default=None, metavar="PATH",
-                    help="run only phases 14, 15 and 10-12 and write their records to PATH (the "
-                    "main run starts this itself)")
+                    help="run only phases 14, 15, 10-12, 16a and 16d and write their records "
+                    "to PATH (the main run starts this itself)")
     ap.add_argument("--perenv-worker", default=None, metavar="PATH",
                     help="run only phase 15 and write its records to PATH")
+    ap.add_argument("--phase16-worker", default=None, metavar="PATH",
+                    help="run only phases 2, 3 and 16 and write their records to PATH")
     args = ap.parse_args(argv)
     out_path = args.out
     if not torch.cuda.is_available():
@@ -3332,9 +3748,12 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     if args.side_worker:
-        return worker(args.side_worker, _phase14() + _phase15() + _phases10to12())
+        return worker(args.side_worker, _phase14() + _phase15() + _phases10to12()
+                      + [("16a", phase_landscape), ("16d", phase_cli_modes)])
     if args.perenv_worker:
         return worker(args.perenv_worker, _phase15())
+    if args.phase16_worker:
+        return worker(args.phase16_worker, [("2", phase_build), ("3", phase_kernels)] + _phase16())
     start, seconds = time.perf_counter(), {}
 
     def run(name, fn, *args):
@@ -3352,15 +3771,17 @@ def main(argv=None) -> int:
         "phys_substep": kern["phys_substep"]["ms"],
         "lstm_cell": statistics.mean(p["ms"] for p in kern["lstm_cell"]["per_launch"].values())})
     bptt = run("6", phase_bptt)
-    with _SideWorker() as side_worker:   # phases 14, 15 and 10-12 alongside 7-9 and 13
+    with _SideWorker() as side_worker:   # phases 14, 15, 10-12, 16a, 16d beside 7-9, 16b, 16c, 13
         training = run("7", phase_training)
         solve = run("8", phase_batched_solve)
+        p16 = {"16b": run("16b", phase_entropy_kappa), "16c": run("16c", phase_kappa)}
         mpc = run("9", phase_mpc)
         wholebody = run("13", phase_wholebody)
         side = run("side", side_worker.result)
     terrain_eval, terrain_training, parity_rec = side["10"], side["11"], side["12"]
     wb_fleet, wb_track, wb_parity, wb_terrain = (side[k] for k in ("14a", "14b", "14c", "14d"))
     pe = {k: side[k] for k in ("15a", "15b", "15c", "15d", "15e")}
+    p16.update({k: side[k] for k in ("16a", "16d")})
     (perenv_training, perenv_variants), (ppo3_lstm, ppo3_mlp) = pe["15c"], pe["15d"]
     seconds.update({f"{k} (second process)": v for k, v in side["seconds"].items()})
 
@@ -3380,7 +3801,9 @@ def main(argv=None) -> int:
         "lstm_cell_train": (lstm_src, lstm_repl, "lstm_cell_train_kernel", "training"),
         "lstm_cell_bwd": (lstm_src, "high_speed_quadrupedal_locomotion_by_irrl_tpu/models/lstm.py:83 "
                           "(the cell's transpose under jax.grad; no TPU kernel)",
-                          "lstm_cell_bwd_kernel", "training")}
+                          "lstm_cell_bwd_kernel", "training"),
+        # the same TPU kernel under the landscape's jax.vmap over blended weight sets
+        "lstm_cell_rows": (lstm_src, lstm_repl, "lstm_cell_pair_rows_kernel", "landscape")}
     runs = {"serving": serving, "full_width": full, "training": training, "mpc": mpc,
             "terrain_eval": terrain_eval, "terrain_training": terrain_training,
             "parity": parity_rec, "wb_dense": wholebody["dense_frozen"],
@@ -3389,7 +3812,8 @@ def main(argv=None) -> int:
             "wb_terrain": wb_terrain, "perenv_hard_eval": pe["15a"],
             "perenv_crucial_eval": pe["15b"], "perenv_training": perenv_training,
             "perenv_training_variants": perenv_variants, "ppo3_lstm": ppo3_lstm,
-            "ppo3_mlp": ppo3_mlp}
+            "ppo3_mlp": ppo3_mlp, "landscape": p16["16a"], "entropy_kappa": p16["16b"],
+            "kappa": p16["16c"], "cli_modes": p16["16d"], "teleop": p16["16d"]["teleop"]}
     extras = ("shape", "per_launch", "call_ms", "plain_call_ms", "library_call_ms", "substep_ms",
               "substep_plain_ms", "substep_bound_ms", "substep_bound_by", "substep_max_abs_err",
               "c2t_ms", "c2t_pd_path_ms", "c2t_bound_ms", "c2t_bound_by", "c2t_max_abs_err",
@@ -3420,6 +3844,7 @@ def main(argv=None) -> int:
                        "terrain_training": terrain_training, "parity": parity_rec,
                        "wholebody": wholebody, "wb_fleet": wb_fleet, "wb_track": wb_track,
                        "wb_parity": wb_parity, "wb_terrain": wb_terrain, "perenv": pe,
+                       "phase16": p16,
                        "seconds_by_phase": seconds}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))

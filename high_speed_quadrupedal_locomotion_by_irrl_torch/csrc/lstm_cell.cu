@@ -61,6 +61,23 @@
 // weight rows stream through the same cp.async ring and the tile of dgates
 // lies j-major in shared memory. It is bound like the forward: ~38 MFLOP and
 // ~2 MB a tower at B = 1024, latency and the shared-memory pipe, not flops.
+//
+// One weight set a row. lstm_cell_pair_rows_kernel is the pair's function
+// (with the mask) where row b reads its own Wx[b] (d, 4n), Wh[b] (n, 4n) and
+// b[b] (4n): the cell of the JAX package's jax.vmap(lstm.deterministic_action)
+// over stacked, blended parameter sets (analysis/landscape.py), whose TPU
+// kernel is the same ops/lstm_pallas.py::_kernel under vmap. Its plain
+// version is models/lstm.lstm_cell_pair_rows. Nothing is shared between
+// rows, so the tile design above has nothing to amortize: each row streams
+// its own (d + n + 1) * 4n floats, 64.5 KB a tower at d = 35 and 74.5 KB at
+// d = 48, n = 48. It is bound by those bytes (1.43 GB a control step at 5151
+// rows, both layers and towers: 0.43 ms at 3.35 TB/s) and does 2 flops a
+// weight. The design is the simple one that keeps the weight stream
+// coalesced: one block a (row, tower), one thread a gate column, the row's x
+// and h * keep in shared memory; thread j walks weight rows k = 0 .. d + n - 1
+// reading element j of each (neighbouring threads on neighbouring addresses),
+// with four accumulators so that four loads are in flight a thread; the gates
+// meet in shared memory for the tail of the pair.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -431,6 +448,59 @@ inline bool shape_ok(int d, int n) {
   return d > 0 && n > 0 && n * kGroups <= kMaxThreads && smem_bytes(d, n) <= (size_t)kMaxSmem;
 }
 
+// --- one weight set a row ------------------------------------------------------
+
+constexpr int kRowsMaxThreads = 1024;  // 4n: hidden sizes up to 256
+
+// blockIdx.x = row, blockIdx.y = tower; blockDim.x = 4n rounded up to a warp.
+__global__ void __launch_bounds__(kRowsMaxThreads)
+lstm_cell_pair_rows_kernel(CellArgs a0, CellArgs a1, const float* __restrict__ mask,
+                           Strides ld, int d, int n) {
+  extern __shared__ __align__(16) float smem[];
+  const bool second = blockIdx.y != 0;
+  const CellArgs a = {second ? a1.x : a0.x,   second ? a1.h : a0.h,
+                      second ? a1.c : a0.c,   second ? a1.wx : a0.wx,
+                      second ? a1.wh : a0.wh, second ? a1.b : a0.b,
+                      second ? a1.h_out : a0.h_out, second ? a1.c_out : a0.c_out};
+  const int row = blockIdx.x, j = threadIdx.x, n4 = 4 * n, K = d + n;
+  float* s_in = smem;        // [x | h * keep], K
+  float* s_g = smem + K;     // pre-activation gates, 4n
+  const float keep = mask != nullptr ? 1.0f - mask[row] : 1.0f;
+  for (int k = j; k < d; k += blockDim.x) s_in[k] = a.x[(size_t)row * ld.x + k];
+  for (int k = j; k < n; k += blockDim.x) s_in[d + k] = a.h[(size_t)row * ld.h + k] * keep;
+  __syncthreads();
+  if (j < n4) {
+    const float* wx = a.wx + (size_t)row * d * n4 + j;
+    const float* wh = a.wh + (size_t)row * n * n4 + j;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int k = 0;
+    for (; k + 4 <= d; k += 4) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q] += s_in[k + q] * __ldg(wx + (size_t)(k + q) * n4);
+    }
+    for (; k < d; ++k) acc[0] += s_in[k] * __ldg(wx + (size_t)k * n4);
+    int m = 0;
+    for (; m + 4 <= n; m += 4) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[q] += s_in[d + m + q] * __ldg(wh + (size_t)(m + q) * n4);
+    }
+    for (; m < n; ++m) acc[0] += s_in[d + m] * __ldg(wh + (size_t)m * n4);
+    s_g[j] = (acc[0] + acc[1]) + (acc[2] + acc[3]) + __ldg(a.b + (size_t)row * n4 + j);
+  }
+  __syncthreads();
+  if (j < n) {
+    const float ig = sigmoidf(s_g[j]);
+    const float fg = sigmoidf(s_g[n + j]);
+    const float og = sigmoidf(s_g[2 * n + j]);
+    const float cg = tanhf(s_g[3 * n + j]);
+    const float c_new = fg * (a.c[(size_t)row * ld.c + j] * keep) + ig * cg;
+    a.c_out[(size_t)row * ld.out + j] = c_new;
+    a.h_out[(size_t)row * ld.out + j] = og * tanhf(c_new);
+  }
+}
+
+inline size_t rows_smem_bytes(int d, int n) { return sizeof(float) * (size_t)(d + 5 * n); }
+
 }  // namespace
 
 extern "C" int lstm_cell_launch(const float* x, const float* h, const float* c,
@@ -512,6 +582,29 @@ extern "C" int lstm_cell_bwd_launch(const void* const* ptrs, const float* mask, 
       lstm_cell_bwd_kernel<1><<<grid, block, smem, stream>>>(a[0], a[1], mask, B, d, n, kp, ld_c);
     else
       lstm_cell_bwd_kernel<2><<<grid, block, smem, stream>>>(a[0], a[1], mask, B, d, n, kp, ld_c);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ptrs: 16 device pointers on the host, tower 0 then tower 1, each x h c wx wh b
+// h_out c_out, with wx (B, d, 4n), wh (B, n, 4n), b (B, 4n) contiguous.
+// mask: (B,) device pointer or null.
+extern "C" int lstm_cell_pair_rows_launch(const void* const* ptrs, const float* mask, int B,
+                                          int d, int n, int ld_x, int ld_h, int ld_c, int ld_out,
+                                          cudaStream_t stream) {
+  const int threads = (4 * n + 31) / 32 * 32;
+  if (d <= 0 || n <= 0 || threads > kRowsMaxThreads || rows_smem_bytes(d, n) > (size_t)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    CellArgs a[2];
+    for (int t = 0; t < 2; ++t) {
+      const void* const* p = ptrs + 8 * t;
+      a[t] = {(const float*)p[0], (const float*)p[1], (const float*)p[2], (const float*)p[3],
+              (const float*)p[4], (const float*)p[5], (float*)p[6], (float*)p[7]};
+    }
+    const Strides ld = {ld_x, ld_h, ld_c, ld_out};
+    lstm_cell_pair_rows_kernel<<<dim3(B, 2), dim3(threads), rows_smem_bytes(d, n),
+                                 stream>>>(a[0], a[1], mask, ld, d, n);
   }
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,15 @@ width, such a layer goes through :func:`..ops.lstm_cuda.lstm_cell`, one launch
 a tower. :func:`lstm_cell` and :func:`lstm_cell_pair` here are the kernel's
 plain PyTorch versions.
 
+A ``PolicyParams`` whose leaves carry a leading row axis ``B`` (one weight
+set a row, as :func:`..analysis.landscape.blend_params` stacks them) runs
+:func:`forward` and :func:`deterministic_action` with row b on weight set b:
+what the JAX package's ``jax.vmap(lstm.deterministic_action)`` over stacked
+params computes. Its layers go through
+:func:`..ops.lstm_cuda.lstm_cell_pair_rows` (the per-row kernel on the card;
+its plain version :func:`lstm_cell_pair_rows` here), its heads are batched
+products.
+
 :func:`sequence` is the BPTT forward. It walks the stack layer by layer, each
 layer over the whole sequence through
 :func:`..ops.lstm_cuda.lstm_layer_sequence` (on the card the training-mode
@@ -114,8 +123,19 @@ def init(gen: torch.Generator, obs_dim: int = 35, act_dim: int = 12,
 def lstm_cell(w: LSTMWeights, x: torch.Tensor, c: torch.Tensor, h: torch.Tensor):
     """One LSTM step, gate order [i, f, o, g] (CustomerLstmNN.py:119-126).
     The plain version of the CUDA kernel in ops/lstm_cuda.py."""
-    n = w.wh.shape[0]
-    gates = x @ w.wx + h @ w.wh + w.b
+    return _cell_tail(x @ w.wx + h @ w.wh + w.b, c)
+
+
+def lstm_cell_rows(w: LSTMWeights, x: torch.Tensor, c: torch.Tensor, h: torch.Tensor):
+    """:func:`lstm_cell` with one weight set a row: w.wx (B, d, 4n), w.wh
+    (B, n, 4n), w.b (B, 4n); x (B, d), c and h (B, n)."""
+    gates = (torch.bmm(x[:, None], w.wx) + torch.bmm(h[:, None], w.wh))[:, 0] + w.b
+    return _cell_tail(gates, c)
+
+
+def _cell_tail(gates: torch.Tensor, c: torch.Tensor):
+    """(c', h') from the pre-activation gates [i, f, o, g] and c."""
+    n = gates.shape[-1] // 4
     i = torch.sigmoid(gates[..., 0 * n:1 * n])
     f = torch.sigmoid(gates[..., 1 * n:2 * n])
     o = torch.sigmoid(gates[..., 2 * n:3 * n])
@@ -127,7 +147,7 @@ def lstm_cell(w: LSTMWeights, x: torch.Tensor, c: torch.Tensor, h: torch.Tensor)
 
 def _split_state(params: PolicyParams, state: torch.Tensor):
     """(..., S) packed state -> list of (c, h) per layer, pi then v."""
-    sizes = [w.wh.shape[0] for w in params.pi_lstm] + [w.wh.shape[0] for w in params.v_lstm]
+    sizes = [w.wh.shape[-2] for w in params.pi_lstm] + [w.wh.shape[-2] for w in params.v_lstm]
     out, off = [], 0
     for n in sizes:
         out.append((state[..., off:off + n], state[..., off + n:off + 2 * n]))
@@ -144,6 +164,20 @@ def lstm_cell_pair(w0: LSTMWeights, w1: LSTMWeights, x0, x1, c0, h0, c1, h1, mas
         keep = (1.0 - mask)[..., None]
         c0, h0, c1, h1 = c0 * keep, h0 * keep, c1 * keep, h1 * keep
     return lstm_cell(w0, x0, c0, h0) + lstm_cell(w1, x1, c1, h1)
+
+
+def lstm_cell_pair_rows(w0: LSTMWeights, w1: LSTMWeights, x0, x1, c0, h0, c1, h1, mask=None):
+    """:func:`lstm_cell_pair` with one weight set a row (:func:`lstm_cell_rows`).
+    The plain version of the per-row CUDA launch in ops/lstm_cuda.py."""
+    if mask is not None:
+        keep = (1.0 - mask)[..., None]
+        c0, h0, c1, h1 = c0 * keep, h0 * keep, c1 * keep, h1 * keep
+    return lstm_cell_rows(w0, x0, c0, h0) + lstm_cell_rows(w1, x1, c1, h1)
+
+
+def per_row(params: PolicyParams) -> bool:
+    """Whether the leaves carry a leading row axis (one weight set a row)."""
+    return params.pi_b.dim() == 2
 
 
 def _reset_cell(w: LSTMWeights, x, c, h, mask):
@@ -163,23 +197,30 @@ class ForwardOut(NamedTuple):
 def forward(params: PolicyParams, obs: torch.Tensor, state: torch.Tensor,
             done: torch.Tensor) -> ForwardOut:
     """Single-step forward (act model). obs (B, 35), state (B, S), done (B,):
-    the done mask of the *previous* step resets the state."""
+    the done mask of the *previous* step resets the state. With per-row
+    params (:func:`per_row`; towers of one shape) row b runs weight set b;
+    logstd is then (B, act)."""
     chs = _split_state(params, state)
     n_pi, n_v = len(params.pi_lstm), len(params.v_lstm)
     mask = done.to(obs.dtype).contiguous()
     pi_latent = v_latent = obs.contiguous()
     pi_chs, v_chs = [], []
+    rows = per_row(params)
+    pair = lstm_cuda.lstm_cell_pair_rows if rows else lstm_cuda.lstm_cell_pair
     for layer in range(max(n_pi, n_v)):
         w_pi = params.pi_lstm[layer] if layer < n_pi else None
         w_v = params.v_lstm[layer] if layer < n_v else None
         if (w_pi is not None and w_v is not None and w_pi.wx.shape == w_v.wx.shape
                 and w_pi.wh.shape == w_v.wh.shape):
             (c_pi, h_pi), (c_v, h_v) = chs[layer], chs[n_pi + layer]
-            c_pi, pi_latent, c_v, v_latent = lstm_cuda.lstm_cell_pair(
+            c_pi, pi_latent, c_v, v_latent = pair(
                 w_pi, w_v, pi_latent, v_latent, c_pi, h_pi, c_v, h_v, mask)
             pi_chs.append((c_pi, pi_latent))
             v_chs.append((c_v, v_latent))
             continue
+        if rows:
+            raise NotImplementedError("one weight set a row needs towers of one shape at "
+                                      "every layer (the landscape's anchors have them)")
         # towers that differ here in depth or width: one cell launch a tower
         if w_pi is not None:
             c_pi, pi_latent = _reset_cell(w_pi, pi_latent, *chs[layer], mask)
@@ -187,8 +228,12 @@ def forward(params: PolicyParams, obs: torch.Tensor, state: torch.Tensor,
         if w_v is not None:
             c_v, v_latent = _reset_cell(w_v, v_latent, *chs[n_pi + layer], mask)
             v_chs.append((c_v, v_latent))
-    mean = pi_latent @ params.pi_w + params.pi_b
-    value = (v_latent @ params.vf_w + params.vf_b)[..., 0]
+    if rows:
+        mean = torch.bmm(pi_latent[:, None], params.pi_w)[:, 0] + params.pi_b
+        value = (torch.bmm(v_latent[:, None], params.vf_w)[:, 0] + params.vf_b)[..., 0]
+    else:
+        mean = pi_latent @ params.pi_w + params.pi_b
+        value = (v_latent @ params.vf_w + params.vf_b)[..., 0]
     packed = torch.cat([t for ch in pi_chs + v_chs for t in ch], dim=-1)
     return ForwardOut(mean=mean, value=value, state=packed, logstd=params.logstd)
 

@@ -11,6 +11,15 @@ entry points over one device body:
   ``1 - mask``) folded in. Its plain version is
   :func:`..models.lstm.lstm_cell_pair`.
 
+* :func:`lstm_cell_pair_rows` is the pair with one weight set a row
+  (``wx`` (B, d, 4n), ``wh`` (B, n, 4n), ``b`` (B, 4n)): the cell that the
+  JAX package's ``jax.vmap`` of the policy over stacked, blended parameter
+  sets runs (``analysis/landscape.py``). It launches
+  ``lstm_cell_pair_rows_kernel``, one block a (row, tower): with per-row
+  weights no weight byte is shared between rows, so the pair's tile design
+  has nothing to amortize. Inference only: an input that requires grad is
+  refused. Its plain version is :func:`..models.lstm.lstm_cell_pair_rows`.
+
 * :func:`lstm_layer_sequence` runs one layer of one tower, or of both, over
   a whole sequence ``(T, B, d)``. Where a gradient is asked for it is one
   ``torch.autograd.Function`` around the sequence: a loop of launches of the
@@ -26,8 +35,9 @@ entry points over one device body:
 For tensors on the CPU all run their plain version under ordinary autograd;
 for CUDA tensors they launch the kernels, whose products are their own
 register-tiled loops, or raise, never falling back. ``launches`` counts the
-launches of the inference forward, ``train_launches`` those of the
-training-mode forward and ``bwd_launches`` those of the backward kernel.
+launches of the inference forward, ``rows_launches`` those of the per-row
+forward, ``train_launches`` those of the training-mode forward and
+``bwd_launches`` those of the backward kernel.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import torch
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import _build
 
 launches = 0        # inference-forward launches in this process
+rows_launches = 0   # per-row-weights forward launches
 train_launches = 0  # training-mode forward launches (gates kept for the backward)
 bwd_launches = 0    # backward-kernel launches
 
@@ -50,6 +61,7 @@ def _fns():
     lib = _build.load("lstm_cell")
     one, pair = lib.lstm_cell_launch, lib.lstm_cell_pair_launch
     train, bwd = lib.lstm_cell_train_launch, lib.lstm_cell_bwd_launch
+    rows = lib.lstm_cell_pair_rows_launch
     one.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     pair.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p] + [ctypes.c_int] * 7
                      + [ctypes.c_void_p])
@@ -57,8 +69,10 @@ def _fns():
                       + [ctypes.c_void_p])
     bwd.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p] + [ctypes.c_int] * 7
                     + [ctypes.c_void_p])
-    one.restype = pair.restype = train.restype = bwd.restype = ctypes.c_int
-    return one, pair, train, bwd
+    rows.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p] + [ctypes.c_int] * 7
+                     + [ctypes.c_void_p])
+    one.restype = pair.restype = train.restype = bwd.restype = rows.restype = ctypes.c_int
+    return one, pair, train, bwd, rows
 
 
 def _stream(device: torch.device) -> int:
@@ -190,6 +204,57 @@ def lstm_cell_pair(w0, w1, x0: torch.Tensor, x1: torch.Tensor, c0: torch.Tensor,
             ((c0, h0), (c1, h1)))
         return cs0[0], hs0[0], cs1[0], hs1[0]
     return _lstm_cell_pair_kernel(w0, w1, x0, x1, c0, h0, c1, h1, mask)
+
+
+# --- one weight set a row ---------------------------------------------------------
+
+def lstm_cell_pair_rows(w0, w1, x0: torch.Tensor, x1: torch.Tensor, c0: torch.Tensor,
+                        h0: torch.Tensor, c1: torch.Tensor, h1: torch.Tensor, mask=None):
+    """:func:`lstm_cell_pair` with one weight set a row: w.wx (B, d, 4n),
+    w.wh (B, n, 4n), w.b (B, 4n) a tower, contiguous; row b of x, c, h runs
+    weight set b. Rows of x, c, h may be strided views as in the pair.
+    -> (c0', h0', c1', h1'), each (B, n)."""
+    global rows_launches
+    if x0.device.type == "cpu":
+        # imported here: models.lstm imports this module
+        from high_speed_quadrupedal_locomotion_by_irrl_torch.models.lstm import (
+            lstm_cell_pair_rows as plain,
+        )
+        return plain(w0, w1, x0, x1, c0, h0, c1, h1, mask)
+    if x0.device.type != "cuda":
+        raise ValueError(f"lstm cell: unsupported device {x0.device}")
+    _refuse_grad(x0, x1, c0, h0, c1, h1, mask, w0.wx, w0.wh, w0.b, w1.wx, w1.wh, w1.b)
+    if x0.dim() != 2:
+        raise ValueError(f"lstm cell: x must be (B, d), got {tuple(x0.shape)}")
+    (B, d), n, device = x0.shape, w0.wh.shape[-2], x0.device
+    for name, t, shape in (("x0", x0, (B, d)), ("x1", x1, (B, d)), ("c0", c0, (B, n)),
+                           ("h0", h0, (B, n)), ("c1", c1, (B, n)), ("h1", h1, (B, n))):
+        _check(name, t, shape, device, rows_may_stride=True)
+    for a, b, what in ((x0, x1, "x"), (c0, c1, "c"), (h0, h1, "h")):
+        if a.stride(0) != b.stride(0):
+            raise ValueError(f"lstm cell: the two towers' {what} must have the same row "
+                             f"stride, got {a.stride(0)} and {b.stride(0)}")
+    for tag, w in (("w0.", w0), ("w1.", w1)):
+        for name, t, shape in ((f"{tag}wx", w.wx, (B, d, 4 * n)), (f"{tag}wh", w.wh, (B, n, 4 * n)),
+                               (f"{tag}b", w.b, (B, 4 * n))):
+            if (t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape
+                    or not t.is_contiguous()):
+                raise ValueError(f"lstm cell: {name} must be contiguous float32 {shape} on "
+                                 f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if mask is not None:
+        _check("mask", mask, (B,), device, rows_may_stride=False)
+    # one block [c0' | h0' | c1' | h1'] so that a next layer reads both h' at one stride
+    out = torch.empty((B, 4 * n), dtype=torch.float32, device=device)
+    c0n, h0n, c1n, h1n = (out[:, i * n:(i + 1) * n] for i in range(4))
+    ptrs = (ctypes.c_void_p * 16)(*(t.data_ptr() for t in (
+        x0, h0, c0, w0.wx, w0.wh, w0.b, h0n, c0n, x1, h1, c1, w1.wx, w1.wh, w1.b, h1n, c1n)))
+    fn = _fns()[4]
+    with torch.cuda.device(device):
+        err = fn(ptrs, None if mask is None else mask.data_ptr(), B, d, n, x0.stride(0),
+                 h0.stride(0), c0.stride(0), 4 * n, _stream(device))
+    _build.check(err, "lstm_cell_pair_rows_launch")
+    rows_launches += 1
+    return c0n, h0n, c1n, h1n
 
 
 # --- a layer over a whole sequence, with its gradient ----------------------------

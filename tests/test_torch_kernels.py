@@ -403,6 +403,8 @@ def test_cell_wrappers_with_grad_match_plain(cuda):
     before = (lstm_cuda.launches, lstm_cuda.train_launches)
     lstm_cuda.lstm_cell(w, base["x"], base["c"], base["h"])
     assert (lstm_cuda.launches, lstm_cuda.train_launches) == (before[0] + 1, before[1])
+    with pytest.raises(ValueError, match="row stride"):
+        lstm_cuda.lstm_cell_pair_rows(w0, w1, x0.contiguous(), x1, c0, h0, c1, h1)
     with pytest.raises(RuntimeError, match="requires grad"):
         lstm_cuda._lstm_cell_kernel(w, _leaf(base["x"]), base["c"], base["h"])
 
@@ -542,3 +544,73 @@ def test_replayed_linearizer_matches_its_eager_calls(cuda):
             scale = float(want.abs().max())
             torch.testing.assert_close(got, want, rtol=0, atol=1e-6 * scale)
     assert len(replayed.graphs) == 1
+
+
+def _rows_args(B, d, masked, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *s, scale=1.0: scale * torch.randn(s, generator=g, device=device)  # noqa: E731
+    mk = lambda: lstm.LSTMWeights(wx=r(B, d, 192, scale=0.2), wh=r(B, 48, 192, scale=0.2),  # noqa: E731
+                                  b=r(B, 192, scale=0.1))
+    w0, w1, state, xs = mk(), mk(), r(B, 192), r(B, 2 * d + 3)
+    mask = (torch.rand(B, generator=g, device=device) < 0.4).float() if masked else None
+    return (w0, w1, xs[:, :d], xs[:, d:2 * d], state[:, :48], state[:, 48:96],
+            state[:, 96:144], state[:, 144:], mask)
+
+
+@pytest.mark.parametrize("B", [1326, 37, 5])
+@pytest.mark.parametrize("d", [35, 48])
+@pytest.mark.parametrize("masked", [False, True])
+def test_lstm_rows_kernel_matches_plain(cuda, B, d, masked):
+    """One weight set a row, both towers in one launch, strided views of a
+    packed state, the pre-cell reset mask."""
+    args = _rows_args(B, d, masked, cuda, B + d)
+    before = lstm_cuda.rows_launches
+    got = lstm_cuda.lstm_cell_pair_rows(*args)
+    want = lstm.lstm_cell_pair_rows(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.rows_launches == before + 1
+    for a, b in zip(got, want):   # f32 gate products of length <= 96, another order
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=0)
+
+
+def test_policy_forward_with_per_row_weights(cuda):
+    """Per-row params take the per-row launch, one a layer, and give what each
+    row's weight set gives alone (the CPU's plain forward)."""
+    B = 21
+    ps = [lstm.init(torch.Generator(device=cuda).manual_seed(s), device=cuda) for s in range(3)]
+    from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import landscape
+    w = landscape.simplex_grid(0.2)
+    stacked = landscape.blend_params(ps, w)
+    g = torch.Generator().manual_seed(3)
+    obs, state = torch.randn(B, 35, generator=g), torch.randn(B, 384, generator=g)
+    done = (torch.rand(B, generator=g) < 0.3).float()
+    before = (lstm_cuda.launches, lstm_cuda.rows_launches)
+    got = lstm.forward(stacked, obs.to(cuda), state.to(cuda), done.to(cuda))
+    torch.cuda.synchronize()
+    assert (lstm_cuda.launches, lstm_cuda.rows_launches) == (before[0], before[1] + 2)
+    want = lstm.forward(landscape.blend_params([_to_cpu(p) for p in ps], w), obs, state, done)
+    for g_, w_ in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g_.cpu(), w_, atol=1e-5, rtol=0)
+
+
+def _to_cpu(p):
+    cpu = lambda t: t.cpu()  # noqa: E731
+    return lstm.PolicyParams(
+        pi_lstm=tuple(lstm.LSTMWeights(cpu(w.wx), cpu(w.wh), cpu(w.b)) for w in p.pi_lstm),
+        v_lstm=tuple(lstm.LSTMWeights(cpu(w.wx), cpu(w.wh), cpu(w.b)) for w in p.v_lstm),
+        pi_w=cpu(p.pi_w), pi_b=cpu(p.pi_b), logstd=cpu(p.logstd), vf_w=cpu(p.vf_w),
+        vf_b=cpu(p.vf_b))
+
+
+def test_rows_wrapper_refuses_bad_input(cuda):
+    w0, w1, x0, x1, c0, h0, c1, h1, _ = _rows_args(4, 35, False, cuda, 0)
+    with pytest.raises(ValueError, match="w1.wx"):
+        lstm_cuda.lstm_cell_pair_rows(w0, lstm.LSTMWeights(w1.wx[:3], w1.wh, w1.b), x0, x1,
+                                      c0, h0, c1, h1)
+    with pytest.raises(ValueError, match="float32"):
+        lstm_cuda.lstm_cell_pair_rows(w0, w1, x0.double(), x1, c0, h0, c1, h1)
+    with pytest.raises(ValueError, match="row stride"):
+        lstm_cuda.lstm_cell_pair_rows(w0, w1, x0.contiguous(), x1, c0, h0, c1, h1)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        lstm_cuda.lstm_cell_pair_rows(w0, w1, x0.detach().clone().requires_grad_(), x1, c0, h0,
+                                      c1, h1)

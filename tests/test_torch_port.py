@@ -50,6 +50,11 @@ assert {pkg.__name__ + '.' + m for m in slice4} <= set(names), names
 wholebody = {'ops.linalg', 'utils.rotation', 'phys.spatial', 'phys.contact', 'phys.dynamics',
              'mpc.cost', 'mpc.ilqr', 'mpc.linearize', 'mpc.trot'}
 assert {pkg.__name__ + '.' + m for m in wholebody} <= set(names), names
+slice9 = {'analysis.robustness', 'analysis.landscape', 'analysis.figures', 'analysis.viewer',
+          'utils.delay', 'utils.filters', 'utils.gamepad', 'utils.native'}
+assert {pkg.__name__ + '.' + m for m in slice9} <= set(names), names
+from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import native
+assert not native._libs
 assert not bad, bad
 """
 
@@ -168,3 +173,17 @@ def test_smoke_bound_counts_fewer_operations_than_the_plain_version():
         P, gc, torch.zeros(18, B), torch.zeros(12, B), torch.zeros(6, B), 0.1, 0.0, 2.5e-4,
         ground_fn=lambda x, y: tterrain.height(tp, x, y))) / B
     assert 0.25 * plain_t < terrain < 0.5 * plain_t and plain_t - plain > terrain - need
+
+
+def test_analysis_entry_points_raise_without_cuda(monkeypatch):
+    from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import landscape as tls
+    from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import robustness as trb
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trb.entropy_noise(torch.Generator(), 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tls.reward_landscape(tconfig.test_default(), None, None, None)
+    for mode in ("--kappa", "--landscape", "--teleop"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tcli.main(["--model", ARTIFACT, mode] + (["a,b"] if mode == "--landscape" else []))

@@ -221,7 +221,7 @@ def test_yaml_copies_parse_to_the_same_fields(name):
     assert tcfg.terrain == ("terrain" in name) and tcfg.terrain_sampled
     assert sorted(os.path.basename(p) for p in glob.glob(os.path.join(TORCH_PKG, "configs", "*")))\
         == ["bp5_imitation.yaml", "bp5_imitation_terrain.yaml", "bp5_relax_terrain.yaml",
-            "bp5_train.yaml"]
+            "bp5_test.yaml", "bp5_train.yaml"]
 
 
 def test_loggers_and_run_dir(tmp_path, capsys):
