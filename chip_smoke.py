@@ -100,9 +100,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    falls); (c) ``analysis.parity.mpc_vs_bp5`` at cmd 1 (through both
    kernels), its solve from JAX's start held to JAX's cost and mae /
    torque_mae to JAX's; (d) a 25-step ``terrain_model=True`` loop on the
-   sampled heightmap, finite and upright. Phases 14, 15, 10-12, 16a and 16d
-   run in that order in a second process (``--side-worker``) alongside phases
-   7, 8, 16b, 16c, 9 and 13, whose loops, like theirs, are host-bound on one
+   sampled heightmap, finite and upright. Phases 14, 15, 10-12, 16a, 16d and
+   17c run in that order in a second process (``--side-worker``) alongside
+   phases 7, 8, 16b, 16c, 9, 13, 17a and 17b, whose loops, like theirs, are host-bound on one
    Python thread with the card mostly idle;
 15. the per-env control step (``envs.blackpanther.step``: the dense per-env
    physics in plain PyTorch, no physics launch, asserted; ``--perenv-worker
@@ -133,7 +133,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    --corr --delay 0,1,2,5 --save-energy-data --dump-info --viewer`` at vx 2,
    then ``value_pca``, ``spectrogram`` and ``toe_trajectories`` on a
    rollout's log, and ``--teleop --serve`` for 200 steps read by a
-   ``StateClient``.
+   ``StateClient``;
+17. RefTraj tables, the analytic fractal terrain and the tooling closures
+   (``--phase17-worker PATH`` runs phases 2, 3 and 17 alone), in the main
+   process after phase 13: (a) the flagship through ``step_batch`` with a
+   table synthesized from the gait generator at 1024 envs for 200 steps,
+   every env's references and phase observation on its table row at every
+   step (1 physics and 2 LSTM launches a step, asserted); (b) the physics
+   kernel's analytic-ground instantiation against its plain twin (replayed
+   from a CUDA graph) over 50 control steps at 1024 envs, then the terrain
+   policy on the analytic terrain at cmd 1-3 x JAX's 8 seeds, 24 envs for
+   1500 steps, each command's mean speed held to the JAX lanes loop within
+   max(0.1 m/s, 2 x JAX's own spread under a 1e-6 m nudge), falls within
+   JAX's range (every physics launch of the two in the analytic mode,
+   asserted); (c) ``cli.mpc --viewer`` with ``--engine srb`` (50 steps) and
+   ``--engine wb`` (10 steps), and ``NumpyVecEnv`` recording 30 steps to a
+   GIF, in the second process; (d) phase 7 checks ``dashboard.png`` in the
+   training run dir (the dashboard and the GIF are matplotlib figures: on a
+   machine without it, their skip is checked and recorded). Phase 3 holds the analytic instantiation to its plain loop for one control
+   step, times it beside the flat step and reads its ptxas report.
 
 Phase 3 also holds the control step with its Convert2Torque inputs (a torque
 feedforward and a PD scale) against its plain loop, at the closed loop's
@@ -160,6 +178,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib.util
 import json
 import os
 import statistics
@@ -177,7 +196,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import eval as ev
 from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import landscape
 from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import parity
 from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import blackpanther as bp
-from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import vec
+from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import reftraj, vec
 from high_speed_quadrupedal_locomotion_by_irrl_torch.cli import mpc as cli_mpc
 from high_speed_quadrupedal_locomotion_by_irrl_torch.cli import test as cli_test
 from high_speed_quadrupedal_locomotion_by_irrl_torch.cli import train as cli_train
@@ -973,6 +992,53 @@ JAX_KAPPA = {1.0: {"kappa": -6.0674382, "survived": False, "nudge_spread": 6.61e
              4.0: {"kappa": -3.13779692, "survived": True, "nudge_spread": 0.0113},
              5.0: {"kappa": -2.97878315, "survived": True, "nudge_spread": 0.00039}}
 
+# phase 17: RefTraj tables, the analytic fractal terrain, the tooling closures. Every limit below
+# was fixed before the phase's first run on the H100.
+# (a) the flagship through step_batch with a table synthesized from the gait generator (cmd 1-5,
+# REFTRAJ_FRAMES frames each) at 1024 envs for REFTRAJ_STEPS steps, ManualTraj off: every env's
+# joint_ref, joint_dot_ref, command_filtered and phase observation equal to its table row at
+# every step, 1 physics and 2 LSTM pair launches a step
+REFTRAJ_FRAMES, REFTRAJ_STEPS = 600, 200
+# (b) the analytic terrain (configs/bp5_relax_terrain.yaml with terrain_sampled off): the
+# kernel's analytic instantiation against its plain twin (replayed from a CUDA graph) over
+# ANALYTIC_TWIN_STEPS control steps at 1024 envs from the envs' spawn (PD to the stand pose;
+# the toes land at ~35 steps), bases within TERRAIN_BASE_ATOL at every step; then the terrain
+# policy at cmd 1-3 x the 8 seeds of JAX's env_init(cfg, PRNGKey(k)), k < 8, one batch of 24
+# envs for TERRAIN_STEPS steps on step_batch, against the JAX lanes loop on the CPU
+# (`tests/test_torch_terrain_analytic.py lanes 1500`): per command the mean over the seeds of
+# the trailing-40 % forward speed within max(V_TOL, 2 x JAX's spread under a 1e-6 m nudge of
+# the start), the falls within JAX's range under that nudge. The hash's float32 sin flips
+# (under 1 % of points, up to 0.2 m) are real terrain differences: no limit on bases or falls
+# equal to JAX's, as phase 10 has on the heightmap.
+ANALYTIC_TWIN_STEPS = 50
+# operations of one analytic lookup (csrc/phys_substep.cu ground_height<AnalyticTerrain>):
+# seed * 74.7 once; per octave the two scaled coordinates, two floors and fractions, two
+# smootherstep (7 each), ix + 1 and iy + 1, 1 - sx and 1 - sy, four hashes (two products, two
+# sums, a sine, a product, a floor, a difference, a product and a difference: 10 each), the
+# bilinear blend (8 products, 3 sums) and the octave's gain and sum; the scale; p - h
+ANALYTIC_LOOKUP_OPS = 1 + 3 * (2 + 2 + 2 + 14 + 2 + 2 + 4 * 10 + 11 + 2) + 1 + 1
+JAX_ANALYTIC_SEEDS = [7.293820381164551, 403.6463623046875, 995.6829833984375, 25.994659423828125,
+                      637.8344116210938, 83.81330871582031, 192.88540649414062, 675.1336059570312]
+JAX_ANALYTIC_LANES = {
+    1.0: ([0.7685134410858154, 0.8616187572479248, 0.8706791400909424, 0.866380512714386,
+           0.8255972862243652, 0.8034907579421997, 0.8954890966415405, 0.9140418767929077], 0),
+    2.0: ([2.2392334938049316, 2.262422561645508, 2.2202060222625732, 2.1480202674865723,
+           2.3646886348724365, 2.0955967903137207, 2.150524854660034, 2.221975564956665], 0),
+    3.0: ([3.0810632705688477, 3.123487949371338, 3.1910808086395264, 2.930881977081299,
+           3.5248775482177734, 3.2125637531280518, 3.0389487743377686, 3.015805721282959], 0)}
+# JAX's own spread of the mean speed under the nudge (+-1e-6 m), and its falls in the three runs
+JAX_ANALYTIC_NUDGE = {1.0: {"spread": 0.00023111701011657715, "falls": [0, 0, 0]},
+                      2.0: {"spread": 0.004114627838134766, "falls": [0, 0, 0]},
+                      3.0: {"spread": 0.12471580505371094, "falls": [0, 0, 0]}}
+# (c) cli.mpc --viewer: --engine srb for VIEWER_SRB_STEPS steps and --engine wb for
+# VIEWER_WB_STEPS at cmd 1, each HTML self-contained with one frame every 5 steps; NumpyVecEnv
+# (the per-env step) recording VIDEO_STEPS steps of env 0 to a GIF, one frame every 10
+VIEWER_SRB_STEPS, VIEWER_WB_STEPS, VIDEO_STEPS, VIDEO_ENVS = 50, 10, 30, 8
+CLOSURES_OUT_DIR = os.path.join(ROOT, "runs", "chip_smoke_closures")
+# the host-side figures (the training dashboard, the recorded video) need matplotlib, which not
+# every machine with the card has; where it is absent the checks record that they were skipped
+HAS_MATPLOTLIB = importlib.util.find_spec("matplotlib") is not None
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1063,7 +1129,7 @@ def count_ops(fn) -> int:
 
 
 def phys_ops_per_env(n_substeps: int, pd_law: bool, motor_dynamics: bool = False,
-                     terrain: bool = False) -> int:
+                     terrain: bool = False, analytic: bool = False) -> int:
     """Arithmetic operations one env needs for ``n_substeps`` physics substeps,
     each after a PD torque if ``pd_law``: a multiply, an add and a compare
     count one each (a fused multiply-add two), as do a square root, a
@@ -1073,7 +1139,9 @@ def phys_ops_per_env(n_substeps: int, pd_law: bool, motor_dynamics: bool = False
     leg-first solve of the block-arrow mass matrix. (The plain version's
     per-body projections and dense 18x18 Cholesky take some 2.6 times as
     many, which the function does not need.) On ``terrain`` each substep adds
-    a bilinear lookup under each of the 4 toes and 8 base corners."""
+    a lookup under each of the 4 toes and 8 base corners: bilinear on the
+    heightmap, or the 3 octaves of value noise of the analytic fractal
+    (``analytic``)."""
     cross, dot6 = 9, 11
     si_apply = 2 * cross + 18 + 6          # symmetric 3x3 product, two crosses, m v - h x w
     project = cross + 3
@@ -1099,7 +1167,8 @@ def phys_ops_per_env(n_substeps: int, pd_law: bool, motor_dynamics: bool = False
             + 103 + 36 + 36                # 6x6 Cholesky, forward and backward substitution
             + 18 + 56)                     # base integration, exp-map quaternion update
     pd_joint = (7 + 14 + (22 if motor_dynamics else 0)) if pd_law else 0
-    lookups = TERRAIN_LOOKUPS_PER_ENV * TERRAIN_LOOKUP_OPS if terrain else 0
+    lookup = ANALYTIC_LOOKUP_OPS if analytic else TERRAIN_LOOKUP_OPS
+    lookups = TERRAIN_LOOKUPS_PER_ENV * lookup if terrain else 0
     return n_substeps * (4 * leg + base + 12 * pd_joint + lookups)
 
 
@@ -1919,10 +1988,95 @@ def _check_lstm_training(rec: dict) -> None:
         max_abs_err=max(grad_errs), max_rel_err=max(grad_rel), per_width=per_d)
 
 
+def _analytic_inputs(B: int, seed: int):
+    """Control-step inputs on the analytic fractal: seeds over [0, 1000), each
+    base 0.30 m above the ground under it."""
+    args = list(_control_inputs(B, seed, motor_dynamics=False))
+    rng = np.random.default_rng(seed + 5)
+    tp = terrain.with_seeds(torch.tensor(rng.uniform(0.0, 1000.0, B), device=DEVICE), 0.1)
+    gc = args[2].clone()
+    gc[2] += terrain.height(tp, gc[0], gc[1])
+    args[2] = gc
+    return args, terrain.rows(tp)
+
+
+def ptxas_of(source: str, entry: str) -> dict | None:
+    """Registers, spill bytes and stack frame of the kernel whose mangled name
+    holds ``entry``, from this process's nvcc -Xptxas -v output (None if the
+    library was built by another process)."""
+    lines = _build.build_logs.get(source, "").splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry" in ln and entry in ln:
+            rec = {}
+            for follow in lines[i + 1:i + 5]:
+                if "Compiling entry" in follow:
+                    break
+                words = follow.replace(",", "").split()
+                if "stack" in follow and "spill" in follow:
+                    rec.update(stack_bytes=int(words[0]), spill_store_bytes=int(words[4]),
+                               spill_load_bytes=int(words[8]))
+                if "registers" in follow:
+                    rec["registers"] = int(words[words.index("registers") - 1])
+            return rec
+    return None
+
+
+def _check_phys_analytic(rec: dict) -> None:
+    """The control step on the analytic fractal (its own instantiation of the
+    kernel): against its plain loop at chain (c)'s tolerances, then its time
+    beside the flat step's, in turns, the plain loop's, and the bound."""
+    cfg = config.test_default()
+    tail = (cfg.substeps, cfg.contact_slip_vel, 0.0, cfg.simulation_dt)
+    errs = []
+    for B in (FULL_B, 37):
+        args, terr = _analytic_inputs(B, seed=B + 31)
+        got = phys_cuda.control_step(*args, *tail, terrain=terr)
+        plain = phys_cuda.control_step_plain(*args, *tail, terrain=terr)
+        flat = phys_cuda.control_step(*args, *tail)
+        torch.cuda.synchronize()
+        if torch.equal(got[5], flat[5]):
+            raise RuntimeError("the analytic terrain changed no contact force")
+        errs.append(_assert_rows(got, plain, STEP_ATOL, 1e-3))
+        by_row = ", ".join(f"{n} {float((a - b).abs().max()):.2g}" for n, a, b in zip(
+            ("gc", "gv", "toe", "toe vel", "|f|", "fn", "torque"), got, plain))
+        log(f"[3] control_step on the analytic terrain B={B} x{cfg.substeps}: vs plain loop max "
+            f"|err| {errs[-1]:.3g} ({by_row})")
+    args, terr = _analytic_inputs(FULL_B, seed=FULL_B + 31)
+    turns = {"flat": [], "analytic": []}
+    for which in ("flat", "analytic", "analytic", "flat") * 2:
+        t = terr if which == "analytic" else None
+        turns[which].append(timings(lambda: phys_cuda.control_step(*args, *tail, terrain=t),
+                                    kernel="phys_control_step_kernel"))
+    on, off = (min(turns[k], key=lambda r, k=k: abs(r["ms"] - statistics.median(
+        x["ms"] for x in turns[k]))) for k in ("analytic", "flat"))
+    plain = timings(lambda: phys_cuda.control_step_plain(*args, *tail, terrain=terr), reps=1)
+    a_ops = FULL_B * phys_ops_per_env(cfg.substeps, pd_law=True, terrain=True, analytic=True)
+    # the flat step's rows and each env's seed and height scale
+    a_bytes = 4 * FULL_B * (phys_cuda.P_ROWS + 19 + 18 + 12 + 12 + 6 + phys_cuda.STEP_OUT_ROWS + 2)
+    a_b_ms, a_b_by = bound_ms(a_bytes, a_ops)
+    ptx = ptxas_of("phys_substep", "AnalyticTerrain")
+    rec["phys_substep"].update(
+        analytic_max_abs_err=max(errs), analytic_ms=on["ms"], analytic_call_ms=on["call_ms"],
+        analytic_flat_ms=off["ms"], analytic_plain_ms=plain["ms"],
+        analytic_plain_call_ms=plain["call_ms"], analytic_bound_ms=a_b_ms,
+        analytic_bound_by=a_b_by, analytic_bytes=a_bytes, analytic_ops=a_ops,
+        analytic_turns_ms={k: [r["ms"] for r in v] for k, v in turns.items()},
+        analytic_ptxas=ptx, ptxas_map=ptxas_of("phys_substep", "INS_7TerrainE"),
+        ptxas_substep=ptxas_of("phys_substep", "phys_substep_kernel"))
+    rec["phys_substep"]["time_source"].update(control_step_analytic=on["source"])
+    log(f"[3] control_step B={FULL_B} x{cfg.substeps} on the analytic terrain: {on['ms']:.4f} ms "
+        f"on the device ({on['source']}), flat {off['ms']:.4f} ms (median turns; analytic "
+        + " ".join(f"{r['ms']:.4f}" for r in turns["analytic"]) + ", flat "
+        + " ".join(f"{r['ms']:.4f}" for r in turns["flat"]) + f"); plain loop {plain['ms']:.2f} "
+        f"ms device / {plain['call_ms']:.2f} ms a call; bound {a_b_ms:.5f} ms ({a_b_by}: "
+        f"{a_bytes} B, {a_ops} ops needed); ptxas {ptx}")
+
+
 def phase_kernels() -> dict:
     rec = {"phys_substep": {}, "lstm_cell": {}}
     _check_phys(rec)
     _check_phys_terrain(rec)
+    _check_phys_analytic(rec)
     _check_phys_mpc(rec)
     _check_lstm(rec)
     _check_lstm_rows(rec)
@@ -1933,7 +2087,7 @@ def phase_kernels() -> dict:
 # --- phases 4 and 5 -----------------------------------------------------------
 
 def reset_counts() -> None:
-    phys_cuda.launches = 0
+    phys_cuda.launches = phys_cuda.analytic_launches = 0
     lstm_cuda.launches = lstm_cuda.train_launches = lstm_cuda.bwd_launches = 0
     lstm_cuda.rows_launches = 0
 
@@ -1941,7 +2095,8 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """Every wrapper's launch count, by the kernel's name in the `kernels` line."""
     torch.cuda.synchronize()
-    return {"phys_substep": phys_cuda.launches, "lstm_cell": lstm_cuda.launches,
+    return {"phys_substep": phys_cuda.launches, "phys_analytic": phys_cuda.analytic_launches,
+            "lstm_cell": lstm_cuda.launches,
             "lstm_cell_train": lstm_cuda.train_launches, "lstm_cell_bwd": lstm_cuda.bwd_launches,
             "lstm_cell_rows": lstm_cuda.rows_launches}
 
@@ -2214,6 +2369,20 @@ def phase_training() -> dict:
     for name in ("metrics.jsonl", "ckpt_final.pkl", "csv_final"):
         if not os.path.exists(os.path.join(run_dir, name)):
             raise RuntimeError(f"{run_dir} lacks {name}")
+    # 17d: cli.train renders the curve board (JAX cli/train.py:159-165) with matplotlib, a
+    # host-side figure; where the machine has none, the CLI prints why it skipped it, as JAX's
+    dash = os.path.join(run_dir, "dashboard.png")
+    if HAS_MATPLOTLIB:
+        dash_bytes = os.path.getsize(dash) if os.path.exists(dash) else 0
+        if dash_bytes < 10_000:
+            raise RuntimeError(f"{dash} holds {dash_bytes} bytes")
+        log(f"[7] [17d] {dash}: {dash_bytes} bytes")
+    else:
+        if os.path.exists(dash):
+            raise RuntimeError(f"{dash} exists though this machine has no matplotlib")
+        dash_bytes = None
+        log("[7] [17d] dashboard.png not rendered: this machine has no matplotlib (the CPU "
+            "tests render it, tests/test_torch_dashboard.py)")
     start = mio.policy_params_to_numpy(mio.load_bp5_csv(ARTIFACT, device=DEVICE))
     trained_p, adam, step = mio.load_checkpoint(os.path.join(run_dir, "ckpt_final.pkl"), DEVICE)
     trained = mio.policy_params_to_numpy(trained_p)
@@ -2280,7 +2449,8 @@ def phase_training() -> dict:
             "rollout_torch_ops_per_step": rollout_ops_per_step,
             "epoch_ms_profiled": epoch_ms, "torch_ops_per_epoch": oc.calls,
             "epoch_device_busy": busy, "epoch_device_ms": dev["all"],
-            "epoch_kernel_ms": by_kernel}
+            "epoch_kernel_ms": by_kernel, "dashboard_png_bytes": dash_bytes,
+            "dashboard": "rendered" if HAS_MATPLOTLIB else "not rendered: no matplotlib"}
 
 
 # --- phases 8 to 12 ---------------------------------------------------------------
@@ -3663,6 +3833,241 @@ def phase_cli_modes() -> dict:
                        "snapshot_seq": seen["seq"], "snapshot_floats": seen["meta"]}}
 
 
+# --- phase 17 -----------------------------------------------------------------
+
+def phase_reftraj() -> dict:
+    """(a) The flagship through step_batch with a synthesized RefTraj table at
+    1024 envs: every env's references and phase observation on its table row
+    at every step, one physics and two LSTM pair launches a step."""
+    cfg = config.train_default().replace(manual_traj=False, num_envs=FULL_B)
+    params = mio.load_bp5_csv(ARTIFACT, device=DEVICE)
+    t0 = time.perf_counter()
+    table = reftraj.synthesize(cfg, np.array([[vx, 0.0, 0.0] for vx in (1, 2, 3, 4, 5)]),
+                               REFTRAJ_FRAMES, device=DEVICE)
+    table_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    state = bp.env_init(cfg, FULL_B, gen, DEVICE, ref_table=table)
+    obs = bp.observe(cfg, state)
+    h = torch.zeros((FULL_B, lstm.state_size([48, 48])), device=DEVICE)
+    no_reset = torch.zeros(FULL_B, device=DEVICE)
+    last = table.shape[0] - 1
+
+    def off_rows(s: bp.EnvState) -> int:
+        """Envs whose references or phase observation are not their row's."""
+        row = table[(s.frame_idx.long() - 1).clamp(0, last)]
+        ok = ((s.joint_ref == row[:, 0:12]).all(-1) & (s.joint_dot_ref == row[:, 12:24]).all(-1)
+              & (s.command_filtered == row[:, 27:30]).all(-1)
+              & (s.obs_double[:, 3:5] == row[:, 25:27]).all(-1))
+        return int((~ok).sum())
+
+    bad = [off_rows(state)]
+    frames0 = state.frame_idx.clone()
+    reset_counts()
+    t1 = time.perf_counter()
+    dones = 0
+    for _ in range(REFTRAJ_STEPS):
+        a, h = lstm.deterministic_action(params, obs, h, no_reset)
+        out = bp.step_batch(cfg, state, a, gen, ref_table=table)
+        state, obs = out.state, out.obs
+        h = torch.where(out.done[:, None], torch.zeros_like(h), h)
+        bad.append(off_rows(state))
+        dones += int(out.done.sum())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = read_counts()
+    check_counts(counts, rollout_counts(REFTRAJ_STEPS), "17a")
+    if any(bad) or not torch.isfinite(state.gc).all():
+        raise RuntimeError(f"17a: envs off their table rows by step: {bad}")
+    log(f"[17a] table {tuple(table.shape)} built in {table_s:.2f} s; {FULL_B} envs x "
+        f"{REFTRAJ_STEPS} steps on step_batch in {wall:.2f} s ({wall / REFTRAJ_STEPS * 1e3:.2f} "
+        f"ms a step), start frames {int(frames0.min())}-{int(frames0.max())}, {dones} "
+        f"episodes ended; every env on its table row at every step")
+    return {"table_shape": list(table.shape), "table_s": table_s, "wall_s": wall,
+            "ms_per_step": wall / REFTRAJ_STEPS * 1e3, "episodes_ended": dones,
+            "launches": counts}
+
+
+def _analytic_cfg():
+    return config.from_yaml(TERRAIN_CFG).replace(terrain_sampled=False)
+
+
+def _analytic_twin() -> dict:
+    """The kernel's analytic instantiation against its plain twin over
+    ANALYTIC_TWIN_STEPS control steps from the envs' spawn, each fed its own
+    state; the twin's control step replayed from a CUDA graph."""
+    cfg = ev._fixed_command_cfg(_analytic_cfg()).replace(crucial=False)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    s = bp.env_init(cfg, FULL_B, gen, DEVICE)
+    P = lanes.params_to_lanes(s.params)
+    pd = pd_torque.from_config(cfg)
+    rows = lambda x: x.T.contiguous()  # noqa: E731
+    pt, tnl, bw = rows(s.gc[:, 7:]), torch.zeros(12, FULL_B, device=DEVICE), \
+        torch.zeros(6, FULL_B, device=DEVICE)
+    terr = terrain.rows(s.terrain)
+    tail = (cfg.substeps, cfg.contact_slip_vel, cfg.contact_impulse_mass / cfg.simulation_dt,
+            cfg.simulation_dt)
+    gc_k, gv_k = rows(s.gc), rows(s.gv)
+    gc_p, gv_p = gc_k.clone(), gv_k.clone()
+
+    def plain():
+        return phys_cuda.control_step_plain(P, pd, gc_p, gv_p, pt, tnl, bw, *tail, terrain=terr)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        plain()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out_p = plain()
+    errs, contact_from = [], None
+    reset_counts()
+    for step in range(ANALYTIC_TWIN_STEPS):
+        out_k = phys_cuda.control_step(P, pd, gc_k, gv_k, pt, tnl, bw, *tail, terrain=terr)
+        gc_k, gv_k = out_k[0].contiguous(), out_k[1].contiguous()
+        graph.replay()
+        gc_p.copy_(out_p[0])
+        gv_p.copy_(out_p[1])
+        errs.append(float((gc_k[:7] - gc_p[:7]).abs().max()))
+        if contact_from is None and bool((out_k[5] > 0).any()):
+            contact_from = step
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts(counts, {"phys_substep": ANALYTIC_TWIN_STEPS,
+                          "phys_analytic": ANALYTIC_TWIN_STEPS}, "17b twin")
+    if not (max(errs) <= TERRAIN_BASE_ATOL and torch.isfinite(gc_k).all()
+            and contact_from is not None):
+        raise RuntimeError(f"17b: the analytic kernel parts from its plain twin: bases by step "
+                           f"{errs}, first contact at step {contact_from}")
+    log(f"[17b] analytic kernel vs its plain twin, {FULL_B} envs x {ANALYTIC_TWIN_STEPS} steps "
+        f"(toes in contact from step {contact_from}): bases within {max(errs):.3g} (after 10 / "
+        f"25 / 50 steps {errs[9]:.3g} / {errs[24]:.3g} / {errs[-1]:.3g}; limit "
+        f"{TERRAIN_BASE_ATOL})")
+    return {"base_err_by_step": errs, "first_contact_step": contact_from, "launches": counts}
+
+
+def phase_terrain_analytic() -> dict:
+    """(b) The analytic terrain: the kernel against its twin, then the terrain
+    policy at cmd 1-3 x JAX's 8 seeds against the JAX lanes loop."""
+    twin = _analytic_twin()
+    cfg = ev._fixed_command_cfg(_analytic_cfg()).replace(crucial=False)
+    params = mio.load_bp5_csv(TERRAIN_EVAL_ARTIFACT, device=DEVICE)
+    K = len(JAX_ANALYTIC_SEEDS)
+    cmd_of = [vx for vx in TERRAIN_COMMANDS for _ in range(K)]
+    cmds = np.array([[vx, 0.0, 0.0] for vx in cmd_of], np.float32)
+    seeds = torch.tensor(JAX_ANALYTIC_SEEDS * len(TERRAIN_COMMANDS), device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(cfg.seed)
+    ev.policy_rollout(cfg, params, cmds, gen, 2, device=DEVICE, terrain_seed=seeds)  # warm-up
+    reset_counts()
+    t0 = time.perf_counter()
+    logr = ev.policy_rollout(cfg, params, cmds, gen, TERRAIN_STEPS, device=DEVICE,
+                             terrain_seed=seeds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check_counts(counts, {**rollout_counts(TERRAIN_STEPS), "phys_analytic": TERRAIN_STEPS},
+                 "17b")
+    for name in ("gc", "gv", "action", "lstm_state"):
+        if not torch.isfinite(getattr(logr, name)).all():
+            raise RuntimeError(f"17b: non-finite {name} in the analytic-terrain rollout")
+    rows = ev.tracking_rows(cfg, logr, cmd_of)
+    by_cmd, failed = {}, []
+    for i, vx in enumerate(TERRAIN_COMMANDS):
+        mine = rows[i * K:(i + 1) * K]
+        want_v, _ = JAX_ANALYTIC_LANES[vx]
+        nudge = JAX_ANALYTIC_NUDGE[vx]
+        v, falls = [r["v_mean"] for r in mine], sum(r["falls"] for r in mine)
+        limit = max(V_TOL, 2 * nudge["spread"])
+        diff = float(np.mean(v) - np.mean(want_v))
+        by_cmd[vx] = {"v": v, "v_mean": float(np.mean(v)), "jax_v_mean": float(np.mean(want_v)),
+                      "diff": diff, "limit": limit, "falls": falls,
+                      "jax_falls_range": [min(nudge["falls"]), max(nudge["falls"])]}
+        log(f"[17b] cmd {vx:.1f}: v {np.mean(v):.4f} over {K} seeds (JAX lanes "
+            f"{np.mean(want_v):.4f}, diff {diff:+.4f}, limit {limit:.4f}: max(0.1, 2 x JAX's "
+            f"nudge spread {nudge['spread']:.4f})), falls {falls} (JAX {nudge['falls']}); by "
+            "seed " + " ".join(f"{a:.3f}/{b:.3f}" for a, b in zip(v, want_v)))
+        if not (abs(diff) <= limit and min(nudge["falls"]) <= falls <= max(nudge["falls"])):
+            failed.append(f"cmd {vx:g}: v {np.mean(v)} against JAX {np.mean(want_v)} (limit "
+                          f"{limit}), falls {falls} against {nudge['falls']}")
+    if failed:
+        raise RuntimeError("17b: " + "; ".join(failed))
+    log(f"[17b] {TERRAIN_STEPS} control steps x {len(cmd_of)} envs on the analytic terrain in "
+        f"{wall:.2f} s: {wall / TERRAIN_STEPS * 1e3:.3f} ms a control step")
+    return {"twin": twin, "by_command": by_cmd, "wall_s": wall,
+            "ms_per_step": wall / TERRAIN_STEPS * 1e3, "launches": counts}
+
+
+def _viewer_frames(path: str) -> int:
+    """The frame count of a viewer HTML, which must load nothing from a network."""
+    with open(path) as f:
+        html = f.read()
+    if "http://" in html or "https://" in html or "<canvas" not in html:
+        raise RuntimeError(f"17c: {path} is not a self-contained viewer")
+    data = json.loads(html.split("const D = ", 1)[1].split(";\n", 1)[0])
+    return len(data["body"])
+
+
+def phase_closures() -> dict:
+    """(c) ``cli.mpc --viewer`` (srb and wb) and NumpyVecEnv's recorded video."""
+    os.makedirs(CLOSURES_OUT_DIR, exist_ok=True)
+    out = {}
+    for engine, steps in (("srb", VIEWER_SRB_STEPS), ("wb", VIEWER_WB_STEPS)):
+        path = os.path.join(CLOSURES_OUT_DIR, f"viewer_{engine}.html")
+        reset_counts()
+        t0 = time.perf_counter()
+        res = cli_mpc.main(["--engine", engine, "--vx", "1", "--steps", str(steps), "--viewer",
+                            path, "--device", DEVICE])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        check_counts(counts, physics_only_counts(steps), f"17c {engine}")
+        frames = _viewer_frames(path)
+        if res.get("viewer") != path or frames != -(-steps // 5):
+            raise RuntimeError(f"17c: --engine {engine} viewer {res.get('viewer')} with {frames} "
+                               f"frames for {steps} steps")
+        log(f"[17c] cli.mpc --engine {engine} --steps {steps} --viewer: {frames} frames, "
+            f"{os.path.getsize(path)} bytes, {wall:.1f} s")
+        out[engine] = {"frames": frames, "bytes": os.path.getsize(path), "wall_s": wall,
+                       "launches": counts}
+    env = vec.NumpyVecEnv(config.train_default().replace(num_envs=VIDEO_ENVS), seed=0,
+                          device=DEVICE)
+    gif = os.path.join(CLOSURES_OUT_DIR, "video.gif")
+    t0 = time.perf_counter()
+    env.start_recording_video(gif)
+    for _ in range(VIDEO_STEPS):
+        env.step(np.zeros((VIDEO_ENVS, 12), np.float32))
+    captured = np.stack(env._video_gc) if env._video_gc else np.zeros((0, 19))
+    if captured.shape != (VIDEO_STEPS, 19) or not np.isfinite(captured).all():
+        raise RuntimeError(f"17c: NumpyVecEnv captured {captured.shape} states")
+    if HAS_MATPLOTLIB:
+        from PIL import Image
+        env.stop_recording_video()
+        with Image.open(gif) as img:
+            frames = img.n_frames
+        if frames != -(-VIDEO_STEPS // 10):
+            raise RuntimeError(f"17c: {gif} holds {frames} frames for {VIDEO_STEPS} steps")
+        log(f"[17c] NumpyVecEnv recorded {VIDEO_STEPS} steps of env 0 to {frames} GIF frames "
+            f"({os.path.getsize(gif)} bytes)")
+        out["video"] = {"frames": frames, "bytes": os.path.getsize(gif)}
+    else:   # the render is host-side matplotlib (analysis/figures.rollout_animation)
+        try:
+            env.stop_recording_video()
+            raise RuntimeError("17c: the video rendered without matplotlib")
+        except ModuleNotFoundError as e:
+            if e.name != "matplotlib":
+                raise
+        log(f"[17c] NumpyVecEnv captured {VIDEO_STEPS} states of env 0 on the card and handed "
+            "them to figures.rollout_animation, which needs matplotlib: this machine has none, "
+            "so no GIF (the CPU tests render it, tests/test_torch_vec.py)")
+        out["video"] = {"frames": None, "captured": VIDEO_STEPS,
+                        "not_rendered": "no matplotlib on this machine"}
+    out["video"]["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _phase17() -> list:
+    return [("17a", phase_reftraj), ("17b", phase_terrain_analytic), ("17c", phase_closures)]
+
+
 def _phase16() -> list:
     return [("16a", phase_landscape), ("16b", phase_entropy_kappa), ("16c", phase_kappa),
             ("16d", phase_cli_modes)]
@@ -3689,9 +4094,9 @@ def _phases10to12() -> list:
 def worker(out_path: str, phases: list) -> int:
     """Run ``phases`` ((name, fn) pairs) and write their records to
     ``out_path``. The main run starts one such process with phases 14, 15,
-    10-12, 16a and 16d (``--side-worker``) alongside phases 7, 8, 16b, 16c, 9
-    and 13 (host-bound loops of one Python thread each, the card mostly
-    idle), so the script stays inside its time limit; each path's launches are counted in this process, around
+    10-12, 16a, 16d and 17c (``--side-worker``) alongside phases 7, 8, 16b,
+    16c, 9, 13, 17a and 17b (host-bound loops of one Python thread each, the
+    card mostly idle), so the script stays inside its time limit; each path's launches are counted in this process, around
     its own run. (Phase 15 in a third process slowed the others by a third:
     PERF.md.)"""
     seconds, rec = {}, {}
@@ -3707,7 +4112,7 @@ def worker(out_path: str, phases: list) -> int:
 
 class _SideWorker:
     """The second process of :func:`worker` (``--side-worker``, phases 14, 15,
-    10-12, 16a and 16d): started on entry, waited for by :meth:`result`, killed if the
+    10-12, 16a, 16d and 17c): started on entry, waited for by :meth:`result`, killed if the
     main run leaves before that."""
 
     def __enter__(self):
@@ -3735,12 +4140,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU")
     ap.add_argument("--out", default=None, help="also write all measurements to this JSON file")
     ap.add_argument("--side-worker", default=None, metavar="PATH",
-                    help="run only phases 14, 15, 10-12, 16a and 16d and write their records "
-                    "to PATH (the main run starts this itself)")
+                    help="run only phases 14, 15, 10-12, 16a, 16d and 17c and write their "
+                    "records to PATH (the main run starts this itself)")
     ap.add_argument("--perenv-worker", default=None, metavar="PATH",
                     help="run only phase 15 and write its records to PATH")
     ap.add_argument("--phase16-worker", default=None, metavar="PATH",
                     help="run only phases 2, 3 and 16 and write their records to PATH")
+    ap.add_argument("--phase17-worker", default=None, metavar="PATH",
+                    help="run only phases 2, 3 and 17 and write their records to PATH")
     args = ap.parse_args(argv)
     out_path = args.out
     if not torch.cuda.is_available():
@@ -3749,11 +4156,14 @@ def main(argv=None) -> int:
         return 1
     if args.side_worker:
         return worker(args.side_worker, _phase14() + _phase15() + _phases10to12()
-                      + [("16a", phase_landscape), ("16d", phase_cli_modes)])
+                      + [("16a", phase_landscape), ("16d", phase_cli_modes),
+                         ("17c", phase_closures)])
     if args.perenv_worker:
         return worker(args.perenv_worker, _phase15())
     if args.phase16_worker:
         return worker(args.phase16_worker, [("2", phase_build), ("3", phase_kernels)] + _phase16())
+    if args.phase17_worker:
+        return worker(args.phase17_worker, [("2", phase_build), ("3", phase_kernels)] + _phase17())
     start, seconds = time.perf_counter(), {}
 
     def run(name, fn, *args):
@@ -3771,17 +4181,20 @@ def main(argv=None) -> int:
         "phys_substep": kern["phys_substep"]["ms"],
         "lstm_cell": statistics.mean(p["ms"] for p in kern["lstm_cell"]["per_launch"].values())})
     bptt = run("6", phase_bptt)
-    with _SideWorker() as side_worker:   # phases 14, 15, 10-12, 16a, 16d beside 7-9, 16b, 16c, 13
+    # phases 14, 15, 10-12, 16a, 16d and 17c beside 7-9, 16b, 16c, 13, 17a and 17b
+    with _SideWorker() as side_worker:
         training = run("7", phase_training)
         solve = run("8", phase_batched_solve)
         p16 = {"16b": run("16b", phase_entropy_kappa), "16c": run("16c", phase_kappa)}
         mpc = run("9", phase_mpc)
         wholebody = run("13", phase_wholebody)
+        p17 = {"17a": run("17a", phase_reftraj), "17b": run("17b", phase_terrain_analytic)}
         side = run("side", side_worker.result)
     terrain_eval, terrain_training, parity_rec = side["10"], side["11"], side["12"]
     wb_fleet, wb_track, wb_parity, wb_terrain = (side[k] for k in ("14a", "14b", "14c", "14d"))
     pe = {k: side[k] for k in ("15a", "15b", "15c", "15d", "15e")}
     p16.update({k: side[k] for k in ("16a", "16d")})
+    p17["17c"] = side["17c"]
     (perenv_training, perenv_variants), (ppo3_lstm, ppo3_mlp) = pe["15c"], pe["15d"]
     seconds.update({f"{k} (second process)": v for k, v in side["seconds"].items()})
 
@@ -3813,13 +4226,18 @@ def main(argv=None) -> int:
             "perenv_crucial_eval": pe["15b"], "perenv_training": perenv_training,
             "perenv_training_variants": perenv_variants, "ppo3_lstm": ppo3_lstm,
             "ppo3_mlp": ppo3_mlp, "landscape": p16["16a"], "entropy_kappa": p16["16b"],
-            "kappa": p16["16c"], "cli_modes": p16["16d"], "teleop": p16["16d"]["teleop"]}
+            "kappa": p16["16c"], "cli_modes": p16["16d"], "teleop": p16["16d"]["teleop"],
+            "reftraj": p17["17a"], "terrain_analytic_twin": p17["17b"]["twin"],
+            "terrain_analytic": p17["17b"], "viewer_srb": p17["17c"]["srb"],
+            "viewer_wb": p17["17c"]["wb"]}
     extras = ("shape", "per_launch", "call_ms", "plain_call_ms", "library_call_ms", "substep_ms",
               "substep_plain_ms", "substep_bound_ms", "substep_bound_by", "substep_max_abs_err",
               "c2t_ms", "c2t_pd_path_ms", "c2t_bound_ms", "c2t_bound_by", "c2t_max_abs_err",
               "c2t_null_bitwise", "terrain_ms", "terrain_flat_ms", "terrain_plain_ms",
               "terrain_bound_ms", "terrain_bound_by", "terrain_max_abs_err",
-              "terrain_zero_bitwise", "wb_max_abs_err", "wb_widths",
+              "terrain_zero_bitwise", "analytic_ms", "analytic_flat_ms", "analytic_plain_ms",
+              "analytic_bound_ms", "analytic_bound_by", "analytic_max_abs_err", "analytic_ptxas",
+              "ptxas_map", "ptxas_substep", "wb_max_abs_err", "wb_widths",
               "cell_shape", "cell_ms", "cell_plain_ms", "cell_bound_ms", "cell_bound_by",
               "cell_library_ms", "cell_max_abs_err", "cell_per_launch")
     kernels = []
@@ -3834,6 +4252,11 @@ def main(argv=None) -> int:
                         "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                         **{f"launches_{r}": run["launches"][name] for r, run in runs.items()},
                         **{f: k[f] for f in extras if f in k}})
+    # the analytic ground is an instantiation of the physics kernel: its own count of launches
+    if p17["17b"]["launches"]["phys_analytic"] < 1:
+        raise RuntimeError("phys_substep: the analytic-terrain path launched its mode no time")
+    kernels[0]["analytic_launches"] = {r: run["launches"].get("phys_analytic", 0)
+                                       for r, run in runs.items()}
     if out_path:
         os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
         with open(out_path, "w") as f:
@@ -3844,7 +4267,7 @@ def main(argv=None) -> int:
                        "terrain_training": terrain_training, "parity": parity_rec,
                        "wholebody": wholebody, "wb_fleet": wb_fleet, "wb_track": wb_track,
                        "wb_parity": wb_parity, "wb_terrain": wb_terrain, "perenv": pe,
-                       "phase16": p16,
+                       "phase16": p16, "phase17": p17,
                        "seconds_by_phase": seconds}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))

@@ -69,27 +69,40 @@ def env_step(cfg: EnvConfig):
     return bp.step if cfg.hard_contact or cfg.crucial else bp.step_batch
 
 
+def shared_terrain(cfg: EnvConfig, B: int, gen: torch.Generator, device, terrain_offset=None,
+                   terrain_seed=None):
+    """(terrain_offset, terrain_seed) for env_init: on a terrain config with
+    neither given, one map offset (the sampled heightmap) or one seed (the
+    analytic fractal) drawn from ``gen`` for all B envs."""
+    if cfg.terrain and terrain_offset is None and terrain_seed is None:
+        if cfg.terrain_sampled:
+            terrain_offset = tr.sampled_fractal(gen, 1, cfg.terrain_z_scale,
+                                                device).offset.expand(B, 2)
+        else:
+            terrain_seed = tr.fractal(gen, 1, cfg.terrain_z_scale, device).seed.expand(B)
+    return terrain_offset, terrain_seed
+
+
 def policy_rollout(cfg: EnvConfig, params: lstm.PolicyParams, command,
                    gen: torch.Generator, n_steps: int = 750, delay_steps: int = 0,
-                   device=None, terrain_offset=None) -> RolloutLog:
+                   device=None, terrain_offset=None, terrain_seed=None) -> RolloutLog:
     """Closed-loop rollout of the LSTM controller at fixed commands.
 
     command: (3,) for one env or (B, 3) for B envs stepped as one batch.
     ``gen`` must live on ``device`` (default ``cuda``). delay_steps > 0
     inserts an observation FIFO of that many control steps (the DelayTool
     latency experiment, run_bp_v5.py:360-365). On a terrain config all envs
-    share one map offset drawn from ``gen``, or ``terrain_offset`` (B, 2)
-    gives each env its own."""
+    share one map offset (or analytic seed) drawn from ``gen``, or
+    ``terrain_offset`` (B, 2) (``terrain_seed`` (B,)) gives each env its own."""
     device = dev_mod.resolve(device)
     cmd = dev_mod.tensor(command, device)
     single = cmd.dim() == 1
     cmd = cmd.reshape(-1, 3)
     B = cmd.shape[0]
-    if cfg.terrain and terrain_offset is None:
-        terrain_offset = tr.sampled_fractal(gen, 1, cfg.terrain_z_scale, device).offset.expand(B, 2)
-
-    state = bp.env_init(cfg, B, gen, device, terrain_offset).replace(command=cmd,
-                                                                     command_filtered=cmd)
+    terrain_offset, terrain_seed = shared_terrain(cfg, B, gen, device, terrain_offset,
+                                                  terrain_seed)
+    state = bp.env_init(cfg, B, gen, device, terrain_offset, terrain_seed).replace(
+        command=cmd, command_filtered=cmd)
     obs = bp.observe(cfg, state)
     s_size = lstm.state_size([w.wh.shape[0] for w in params.pi_lstm])
     step = env_step(cfg)

@@ -32,7 +32,6 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import eval as ev
 from high_speed_quadrupedal_locomotion_by_irrl_torch.config import EnvConfig
 from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import blackpanther as bp
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm
-from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import terrain as tr
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils.rotation import (
     euler2qua,
     qua2euler,
@@ -49,13 +48,12 @@ class KickLog(NamedTuple):
 
 def _start(cfg: EnvConfig, params, cmd: torch.Tensor, gen: torch.Generator, device):
     """Deployment-style start of B = len(cmd) envs at their commands, on
-    terrain all on one map offset drawn from ``gen``: (state, zero LSTM
+    terrain all on one map offset (or analytic seed) drawn from ``gen``: (state, zero LSTM
     state, normalized command)."""
     B = cmd.shape[0]
-    offset = None
-    if cfg.terrain:
-        offset = tr.sampled_fractal(gen, 1, cfg.terrain_z_scale, device).offset.expand(B, 2)
-    state = bp.env_init(cfg, B, gen, device, offset).replace(command=cmd, command_filtered=cmd)
+    offset, seed = ev.shared_terrain(cfg, B, gen, device)
+    state = bp.env_init(cfg, B, gen, device, offset, seed).replace(command=cmd,
+                                                                   command_filtered=cmd)
     s_size = lstm.state_size([w.wh.shape[-2] for w in params.pi_lstm])
     cmd_n = (cmd - bp.obs_mean(cfg, device)[:3]) / bp.obs_std(cfg, device)[:3]
     return state, torch.zeros((B, s_size), device=device), cmd_n

@@ -16,13 +16,15 @@ of envs. Prints the steady-state body velocity (trailing 40 % of the
 rollout), the fall count and the mean solve cost of the last 100 steps per
 command; ``--dump-info`` writes the last command's rollout as the reference's
 info CSV (the whole-body log has no torque: written as zeros, as the JAX CLI
-does). The viewer export raises ``NotImplementedError``.
+does); ``--viewer`` writes the same rollout as the self-contained HTML viewer
+of :mod:`..analysis.viewer`.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -30,7 +32,7 @@ import torch
 from high_speed_quadrupedal_locomotion_by_irrl_torch import config as cfg_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import eval as ev
-from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import rawdata
+from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import rawdata, viewer
 from high_speed_quadrupedal_locomotion_by_irrl_torch.mpc import runtime
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as lanes
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
@@ -48,7 +50,7 @@ def parse_args(argv):
                    help="reference-format YAML (default: test config)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--viewer", type=str, default=None, metavar="OUT.html",
-                   help="interactive 3D playback (not in the port yet)")
+                   help="write the last command's rollout as an interactive 3D viewer")
     p.add_argument("--dump-info", type=str, default=None, metavar="OUT.csv",
                    help="export the last command's rollout in the reference's info CSV format")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
@@ -95,9 +97,6 @@ def _rollout(engine: str, schedule, batch: np.ndarray, gen, n_steps: int, device
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    if args.viewer:
-        raise NotImplementedError("--viewer is not in the PyTorch port yet: ROADMAP.md Queue 1 "
-                                  "item 6 (analysis and tooling, analysis/viewer.py)")
     device = dev_mod.resolve(args.device)
     cfg = cfg_mod.from_yaml(args.cfg) if args.cfg else cfg_mod.test_default()
     if args.commands:
@@ -119,15 +118,20 @@ def main(argv=None):
             rows[vx] = {"command": vx, "v_mean": float(vb[:, b, 0].mean()),
                         "falls": int(falls[b]), "solve_cost": float(cost[b]),
                         "period": env_cfg.period, "lam": env_cfg.lam}
-            last = (log, b) if vx == cmds[-1] else last
+            last = (env_cfg, log, b) if vx == cmds[-1] else last
     results = {"rows": [rows[vx] for vx in dict.fromkeys(cmds)]}
     for r in results["rows"]:
         print(f"  cmd {r['command']:4.1f} m/s -> v {r['v_mean']:+5.2f} m/s  falls {r['falls']}  "
               f"solve cost ~{r['solve_cost']:.2f}  (T={r['period']:.2f}s "
               f"lam={r['lam']:.2f})", flush=True)
 
+    if args.viewer:
+        env_cfg, log, b = last
+        one = SimpleNamespace(**{f: getattr(log, f)[:, b].cpu().numpy() for f in log._fields})
+        print(f"viewer: {viewer.write_html(env_cfg, one, args.viewer)}")
+        results["viewer"] = args.viewer
     if args.dump_info:
-        log, b = last
+        _, log, b = last
         gc = log.gc[:, b]
         tau = log.torque[:, b] if hasattr(log, "torque") else torch.zeros_like(gc[:, 7:])
         rawdata.dump_robot_info(args.dump_info, gc.cpu().numpy(), log.gv[:, b].cpu().numpy(),

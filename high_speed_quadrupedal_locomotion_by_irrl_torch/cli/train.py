@@ -11,7 +11,9 @@ CLI parity with the reference's train branch (run_bp_v5.py:209-259):
 Runs on the card (``--device cuda``, the default) or on the CPU
 (``--device cpu``). Checkpoints include Adam's state (unlike PPO2.save,
 ppo2.py:452-476) and come with a bp5-format CSV export for the
-dependency-free deployment path; ``--load`` takes either. The JAX package's
+dependency-free deployment path; ``--load`` takes either. At the end the
+run's curves are rendered into ``dashboard.png`` (:mod:`..analysis.dashboard`;
+skipped with a message if that fails, as in the JAX package). The JAX package's
 ``.pkl`` checkpoints are not read: hand such a controller over as its CSV
 directory. The physics follows the JAX package's rule: the batch-in-lanes
 ``step_batch`` at ``--num-envs`` >= 1024 or with ``--lanes``, else the per-env
@@ -35,6 +37,7 @@ import torch
 from high_speed_quadrupedal_locomotion_by_irrl_torch import config as cfg_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch.algo import ppo
+from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import dashboard
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import io as mio
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils.metrics import JsonlLogger
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils.run_dir import make_run_dir
@@ -166,6 +169,12 @@ def main(argv=None):
                        metrics_hook=mlog.write, opt_state=opt_state, state_hook=state_hook,
                        device=device)
     save(ts, "final")
+    try:  # render the curve board beside the raw jsonl (best effort, as the JAX CLI)
+        dashboard.training_dashboard(dashboard.load_metrics(run_dir),
+                                     os.path.join(run_dir, "dashboard.png"),
+                                     title=os.path.basename(run_dir))
+    except Exception as e:
+        print(f"dashboard render skipped: {e}")
     return run_dir
 
 

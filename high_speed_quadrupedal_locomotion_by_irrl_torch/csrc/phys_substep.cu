@@ -58,6 +58,17 @@
 //   read-only path; the pointers travel in one struct by value (kernel
 //   parameter space, no registers until used). A null grid is flat ground:
 //   the height reads 0 and pos - 0 keeps the flat path's bits.
+// * The analytic fractal (phys/terrain.TerrainParams, cfg.terrain_sampled
+//   False): value noise of 3 octaves with a per-env seed and height scale,
+//   looked up where the heightmap is (toe and two corners a lane, vertical
+//   normal), each lookup 3 octaves x 4 hashes fract(sin(.) * 43758.5453).
+//   The hash multiplies a one-ulp difference of its sine argument by ~4e4,
+//   so every operation before it is rounded on its own in the JAX order
+//   (phys/terrain._hash2, _value_noise): an FMA contraction would give
+//   another terrain. The sine is the precise sinf (no fast math): arguments
+//   reach ~1.2e5, past its fast range, where it reduces through a local
+//   array. It is its own instantiation of the kernel (the ground is a
+//   template parameter), so the heightmap and flat code is what it was.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -126,6 +137,12 @@ struct Terrain {
   const float* z_scale;
   int nx, ny;
   float gx_max, gy_max;
+};
+
+// The analytic fractal's per-env rows, (B,) each.
+struct AnalyticTerrain {
+  const float* seed;
+  const float* z_scale;
 };
 
 struct LaneDiag {
@@ -213,6 +230,43 @@ __device__ __forceinline__ float ground_height(const Terrain& t, size_t sB, int 
   s = __fadd_rn(s, __fmul_rn(__fmul_rn(h01, gx1), fy));
   s = __fadd_rn(s, __fmul_rn(__fmul_rn(h11, fx), fy));
   return __fmul_rn(__ldg(t.z_scale + e), s);
+}
+
+// phys/terrain._hash2 for the point's seed term sd = seed * 74.7, rounded in
+// its order: (fract(sin(ix 127.1 + iy 311.7 + sd) 43758.5453)) 2 - 1.
+__device__ __forceinline__ float noise_hash(float ix, float iy, float sd) {
+  const float arg = __fadd_rn(__fadd_rn(__fmul_rn(ix, 127.1f), __fmul_rn(iy, 311.7f)), sd);
+  const float h = __fmul_rn(sinf(arg), 43758.5453f);
+  return __fsub_rn(__fmul_rn(__fsub_rn(h, floorf(h)), 2.0f), 1.0f);
+}
+
+// f^3 (f (6 f - 15) + 10), in the order of phys/terrain._value_noise.
+__device__ __forceinline__ float smootherstep(float f) {
+  const float inner = __fadd_rn(__fmul_rn(f, __fsub_rn(__fmul_rn(f, 6.0f), 15.0f)), 10.0f);
+  return __fmul_rn(__fmul_rn(__fmul_rn(f, f), f), inner);
+}
+
+__device__ __forceinline__ float value_noise(float x, float y, float sd) {
+  const float ix = floorf(x), iy = floorf(y);
+  const float sx = smootherstep(__fsub_rn(x, ix)), sy = smootherstep(__fsub_rn(y, iy));
+  const float ix1 = __fadd_rn(ix, 1.0f), iy1 = __fadd_rn(iy, 1.0f);
+  const float sx1 = __fsub_rn(1.0f, sx), sy1 = __fsub_rn(1.0f, sy);
+  float s = __fmul_rn(__fmul_rn(noise_hash(ix, iy, sd), sx1), sy1);
+  s = __fadd_rn(s, __fmul_rn(__fmul_rn(noise_hash(ix1, iy, sd), sx), sy1));
+  s = __fadd_rn(s, __fmul_rn(__fmul_rn(noise_hash(ix, iy1, sd), sx1), sy));
+  s = __fadd_rn(s, __fmul_rn(__fmul_rn(noise_hash(ix1, iy1, sd), sx), sy));
+  return s;
+}
+
+// The analytic ground under (x, y) for env e (phys/terrain.analytic_height):
+// octaves at frequency 1, 2, 4 and gain 1, 0.25, 0.0625 (both exact scalings).
+__device__ __forceinline__ float ground_height(const AnalyticTerrain& t, size_t, int e, float x,
+                                               float y) {
+  const float sd = __fmul_rn(__ldg(t.seed + e), 74.7f);
+  float h = value_noise(x, y, sd);
+  h = __fadd_rn(h, __fmul_rn(0.25f, value_noise(__fmul_rn(x, 2.0f), __fmul_rn(y, 2.0f), sd)));
+  h = __fadd_rn(h, __fmul_rn(0.0625f, value_noise(__fmul_rn(x, 4.0f), __fmul_rn(y, 4.0f), sd)));
+  return __fmul_rn(__ldg(t.z_scale + e), h);
 }
 
 // Penalty contact against the ground at height `ground` under the point, with
@@ -314,9 +368,11 @@ __device__ __forceinline__ void project_base(const float* F, const float* p0, fl
 }
 
 // One substep of env e as seen by the lane of leg `leg`: updates s, fills d.
+// Ground: Terrain (flat or the heightmap) or AnalyticTerrain.
+template <class Ground>
 __device__ __forceinline__ void substep_lane(const float* __restrict__ prm, size_t sB, int e,
                                              int leg, LaneState& s, const float* tau,
-                                             const float* bw, const Terrain& terr,
+                                             const float* bw, const Ground& terr,
                                              float slip_vel, float impulse_scale, float dt,
                                              LaneDiag& d) {
 #define PRM(r) __ldg(prm + (size_t)(r) * sB + e)
@@ -728,7 +784,9 @@ phys_substep_kernel(const float* __restrict__ prm, const float* __restrict__ gc,
 
 // n_substeps x {PD torque from the fresh state -> substep}; writes the final
 // state, the last substep's toe rows and the last substep's torque. tau_ff
-// and pd_scale may be null (0 and 1); terr.grid may be null (flat ground).
+// and pd_scale may be null (0 and 1); a Terrain's grid may be null (flat
+// ground).
+template <class Ground>
 __global__ void __launch_bounds__(kThreads)
 phys_control_step_kernel(const float* __restrict__ prm, const float* __restrict__ gc,
                          const float* __restrict__ gv, const float* __restrict__ ptarget,
@@ -736,7 +794,7 @@ phys_control_step_kernel(const float* __restrict__ prm, const float* __restrict_
                          const float* __restrict__ bw, const float* __restrict__ tau_ff,
                          const float* __restrict__ pd_scale, float* __restrict__ out, int B,
                          int n_substeps, float slip_vel, float impulse_scale, float dt,
-                         PdConsts pd, Terrain terr) {
+                         PdConsts pd, Ground terr) {
   const Lane l = lane_of_thread(B);
   const size_t sB = (size_t)B;
   LaneState s;
@@ -791,8 +849,9 @@ extern "C" int phys_substep_launch(const float* prm, const float* gc, const floa
 // motor max torque, critical speed, max speed and the envelope's slope, then
 // the motor model's kt, resistance, torque limit, battery voltage, damping
 // and friction. tau_ff and pd_scale: (12, B) rows like ptarget, or null.
-// grid: the (ny, nx) heightmap, or null for flat ground; with it, terr_off
-// (2, B), terr_cell and terr_z (B,).
+// grid: the (ny, nx) heightmap, or null; with it, terr_off (2, B), terr_cell
+// and terr_z (B,). terr_seed: the analytic fractal's (B,) seeds, or null;
+// with it, terr_z (B,) and no grid. Neither: flat ground.
 extern "C" int phys_control_step_launch(const float* prm, const float* gc, const float* gv,
                                         const float* ptarget, const float* torque_norm_last,
                                         const float* bw, const float* tau_ff,
@@ -801,11 +860,13 @@ extern "C" int phys_control_step_launch(const float* prm, const float* gc, const
                                         const float* pd_host, int motor_dynamics,
                                         const float* grid, int nx, int ny,
                                         const float* terr_off, const float* terr_cell,
-                                        const float* terr_z, cudaStream_t stream) {
+                                        const float* terr_z, const float* terr_seed,
+                                        cudaStream_t stream) {
   if (n_substeps < 1) return (int)cudaErrorInvalidValue;
   if (grid != nullptr && (nx < 2 || ny < 2 || terr_off == nullptr || terr_cell == nullptr ||
-                          terr_z == nullptr))
+                          terr_z == nullptr || terr_seed != nullptr))
     return (int)cudaErrorInvalidValue;
+  if (terr_seed != nullptr && terr_z == nullptr) return (int)cudaErrorInvalidValue;
   Terrain terr = {};
   if (grid != nullptr) {
     terr = {grid, terr_off, terr_cell, terr_z, nx, ny, (float)(nx - 1.001), (float)(ny - 1.001)};
@@ -828,8 +889,13 @@ extern "C" int phys_control_step_launch(const float* prm, const float* gc, const
   pd.motor_damping = pd_host[20];
   pd.motor_friction = pd_host[21];
   pd.motor_dynamics = motor_dynamics;
-  if (B > 0) {
-    phys_control_step_kernel<<<blocks_for(B), kThreads, 0, stream>>>(
+  if (B > 0 && terr_seed != nullptr) {
+    const AnalyticTerrain analytic = {terr_seed, terr_z};
+    phys_control_step_kernel<AnalyticTerrain><<<blocks_for(B), kThreads, 0, stream>>>(
+        prm, gc, gv, ptarget, torque_norm_last, bw, tau_ff, pd_scale, out, B, n_substeps,
+        slip_vel, impulse_scale, dt, pd, analytic);
+  } else if (B > 0) {
+    phys_control_step_kernel<Terrain><<<blocks_for(B), kThreads, 0, stream>>>(
         prm, gc, gv, ptarget, torque_norm_last, bw, tau_ff, pd_scale, out, B, n_substeps,
         slip_vel, impulse_scale, dt, pd, terr);
   }

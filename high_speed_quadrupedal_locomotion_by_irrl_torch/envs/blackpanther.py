@@ -22,18 +22,21 @@ generator in the same order:
   ``step_batch`` refuses as JAX's does.
 
 On a terrain config (``cfg.terrain``) every env stands on its own stretch of
-the shared sampled heightmap (:mod:`..phys.terrain`): it spawns above the
-ground under it, and the physics looks the ground up under every toe and
-base corner.
+ground (:mod:`..phys.terrain`): the shared sampled heightmap at its own map
+offset, or with ``cfg.terrain_sampled=False`` the analytic fractal of its own
+seed. It spawns above the ground under it, and the physics looks the ground
+up under every toe and base corner.
+
+With a RefTraj table (``ref_table``, (N, 30), :mod:`.reftraj`) and
+``cfg.manual_traj`` off, the references, the filtered command and the phase
+observation come from the table row of each env's frame index instead of
+the online gait generator; the table is one tensor on the state's device,
+shared by every env.
 
 Reference quirks kept as in the JAX package (the shipped policies were
 trained against them): the torque smoothing mixes 1% of the *normalized*
 torque of the previous control step; the "stop" command bucket is a no-op;
 Vx_min stays 0; reward mimic targets lag the state by one control step.
-
-Not in the port yet, and raising ``NotImplementedError`` rather than running
-something else: the analytic fractal terrain (``cfg.terrain_sampled=False``)
-and RefTraj reference tables.
 """
 
 from __future__ import annotations
@@ -70,7 +73,7 @@ class EnvState:
     gc: torch.Tensor                 # (B, 19)
     gv: torch.Tensor                 # (B, 18)
     params: mdl.RobotParams          # per-env dynamics (fixed across auto-resets)
-    terrain: tr.SampledTerrain | None  # per-env map offsets (cfg.terrain), else None
+    terrain: tr.SampledTerrain | tr.TerrainParams | None  # per-env (cfg.terrain), else None
     # control pipeline
     ptarget_last: torch.Tensor       # (B, 12)
     torque_norm_last: torch.Tensor   # (B, 12) normalized torque (see module notes)
@@ -116,13 +119,6 @@ class StepOut(NamedTuple):
     reward: torch.Tensor    # (B,)
     done: torch.Tensor      # (B,) bool
     info: dict
-
-
-def _check_supported(cfg: EnvConfig) -> None:
-    if cfg.terrain and not cfg.terrain_sampled:
-        raise NotImplementedError(
-            "cfg.terrain_sampled=False (the analytic fractal terrain) is not in the PyTorch "
-            "port yet: only the sampled heightmap is (ROADMAP.md, Queue 1 item 3)")
 
 
 # --- constants per (config, device) --------------------------------------------
@@ -246,18 +242,35 @@ class RefUpdate(NamedTuple):
     joint_ref: torch.Tensor
     joint_dot_ref: torch.Tensor
     ee_ref: torch.Tensor
+    phase: torch.Tensor | None   # (B, 2) table-provided phase obs, or None
+
+
+def _uses_table(cfg: EnvConfig, ref_table) -> bool:
+    return ref_table is not None and not cfg.manual_traj
+
+
+def _table_rows(ref_table: torch.Tensor, frame_idx: torch.Tensor) -> torch.Tensor:
+    """Each env's (B, 30) table row at its frame index, clipped to the table."""
+    return ref_table[frame_idx.clamp(0, ref_table.shape[0] - 1).long()]
 
 
 def _update_references(cfg: EnvConfig, gen: torch.Generator, command: torch.Tensor,
                        command_filtered: torch.Tensor, joint_ref_prev: torch.Tensor,
-                       joint_dot_prev: torch.Tensor, t: torch.Tensor,
-                       is_reset: bool) -> RefUpdate:
+                       joint_dot_prev: torch.Tensor, t: torch.Tensor, frame_idx: torch.Tensor,
+                       is_reset: bool, ref_table: torch.Tensor | None = None) -> RefUpdate:
     """command_obs_update(flag_reset): online Bezier references (ManualTraj,
-    Environment.hpp:1024-1099); references frozen in manual mode."""
+    Environment.hpp:1024-1099) or the RefTraj table row of ``frame_idx``
+    (:1100-1107 with gait_generator :1664-1682: theta 0:12 | theta_dot 12:24 |
+    z 24 | phase 25:27 | cmd 27:30); references frozen in manual mode."""
     if cfg.manual:
         # manual mode: commands injected by the caller; references frozen
         return RefUpdate(command, command_filtered, joint_ref_prev, joint_dot_prev,
-                         torch.zeros_like(joint_ref_prev))
+                         torch.zeros_like(joint_ref_prev), None)
+    if _uses_table(cfg, ref_table):
+        row = _table_rows(ref_table, frame_idx)
+        return RefUpdate(command=command, command_filtered=row[:, 27:30],
+                         joint_ref=row[:, 0:12], joint_dot_ref=row[:, 12:24],
+                         ee_ref=torch.zeros_like(joint_ref_prev), phase=row[:, 25:27])
     command = _resample_command(cfg, gen, command, is_reset)
     if is_reset:
         command_filtered = command
@@ -272,20 +285,25 @@ def _update_references(cfg: EnvConfig, gen: torch.Generator, command: torch.Tens
     else:
         joint_ref_last = joint_ref_prev
     joint_dot_ref = (ref.joint_ref - joint_ref_last) / cfg.control_dt
-    return RefUpdate(command, command_filtered, ref.joint_ref, joint_dot_ref, ref.ee_ref)
+    return RefUpdate(command, command_filtered, ref.joint_ref, joint_dot_ref, ref.ee_ref, None)
 
 
 # --- observation (updateObservation, Environment.hpp:956-1004) ---------------
 
 def _raw_observation(cfg: EnvConfig, gen: torch.Generator, gc: torch.Tensor,
-                     gv: torch.Tensor, command_filtered: torch.Tensor, t: torch.Tensor):
+                     gv: torch.Tensor, command_filtered: torch.Tensor, t: torch.Tensor,
+                     phase_override: torch.Tensor | None = None):
     """Unnormalized (B, 35) obs with sensor noise; also body-frame linear and
     angular velocities and the base rotation. Noise scaled by cfg.obs_noise = 0
-    is not drawn."""
+    is not drawn. ``phase_override``: a RefTraj table's (B, 2) phase
+    (Environment.hpp:972) instead of the gait clock's."""
     B, dev = gc.shape[0], gc.device
     nf = cfg.obs_noise
-    phase = torch.stack([torch.sin(_TWO_PI * t / cfg.period),
-                         torch.cos(_TWO_PI * t / cfg.period)], dim=-1)
+    if phase_override is not None:
+        phase = phase_override
+    else:
+        phase = torch.stack([torch.sin(_TWO_PI * t / cfg.period),
+                             torch.cos(_TWO_PI * t / cfg.period)], dim=-1)
     joints, joint_vel = gc[:, 7:], gv[:, 6:]
     R = quat_to_matrix(gc[:, 3:7])
     posture = R[:, 2, :]
@@ -447,27 +465,47 @@ def _sphere_robot_forces(cfg: EnvConfig, params, gc: torch.Tensor, cube_pos, cub
 
 # --- reset --------------------------------------------------------------------
 
+def _terrain(cfg: EnvConfig, batch: int, gen: torch.Generator, device, terrain_offset,
+             terrain_seed):
+    """The envs' terrain (JAX env_init, blackpanther.py:427-432): None without
+    terrain; the sampled heightmap at drawn or given (batch, 2) map offsets;
+    or (``cfg.terrain_sampled=False``) the analytic fractal of drawn or given
+    (batch,) seeds."""
+    sampled, analytic = cfg.terrain and cfg.terrain_sampled, cfg.terrain and not cfg.terrain_sampled
+    where = ("the sampled heightmap" if sampled else "the analytic terrain" if analytic
+             else "a config without terrain")
+    if (terrain_offset is not None and not sampled) or (terrain_seed is not None and not analytic):
+        raise ValueError(f"{'terrain_offset' if terrain_offset is not None else 'terrain_seed'} "
+                         f"given for {where}")
+    z = cfg.terrain_z_scale
+    if sampled:
+        if terrain_offset is None:
+            return tr.sampled_fractal(gen, batch, z, device)
+        return tr.at_offsets(dev_mod.tensor(terrain_offset, device).reshape(batch, 2), z)
+    if analytic:
+        if terrain_seed is None:
+            return tr.fractal(gen, batch, z, device)
+        return tr.with_seeds(dev_mod.tensor(terrain_seed, device).reshape(batch), z)
+    return None
+
+
 def env_init(cfg: EnvConfig, batch: int, gen: torch.Generator, device=None,
-             terrain_offset: torch.Tensor | None = None) -> EnvState:
+             terrain_offset: torch.Tensor | None = None,
+             terrain_seed: torch.Tensor | None = None,
+             ref_table: torch.Tensor | None = None) -> EnvState:
     """Construction-time state of ``batch`` envs: domain randomization, the
     terrain and the first reset (VectorizedEnvironment.hpp:172-182). ``gen``
     must live on ``device`` (default ``cuda``). On a terrain config each env
-    draws its map offset from ``gen``, unless ``terrain_offset`` (batch, 2)
-    gives them."""
-    _check_supported(cfg)
+    draws its map offset (the sampled heightmap) or its seed (the analytic
+    fractal) from ``gen``, unless ``terrain_offset`` (batch, 2) or
+    ``terrain_seed`` (batch,) gives them. ``ref_table``: an optional (N, 30)
+    RefTraj table on ``device``, shared by every env (the analog of
+    VectorizedEnvironment::set_ref, :158-182)."""
     device = dev_mod.resolve(device)
     c = _consts(cfg, device)
     params = (mdl.randomize(gen, cfg, batch, device) if cfg.stochastic_dynamics
               else mdl.nominal_params(cfg, device).expand(batch))
-    if not cfg.terrain:
-        if terrain_offset is not None:
-            raise ValueError("terrain_offset given for a config without terrain")
-        terrain = None
-    elif terrain_offset is None:
-        terrain = tr.sampled_fractal(gen, batch, cfg.terrain_z_scale, device)
-    else:
-        terrain = tr.at_offsets(dev_mod.tensor(terrain_offset, device).reshape(batch, 2),
-                                cfg.terrain_z_scale)
+    terrain = _terrain(cfg, batch, gen, device, terrain_offset, terrain_seed)
     z = lambda *shape: torch.zeros((batch,) + shape, device=device)  # noqa: E731
     zi = lambda: torch.zeros(batch, dtype=torch.int32, device=device)  # noqa: E731
     blank = EnvState(
@@ -484,24 +522,36 @@ def env_init(cfg: EnvConfig, batch: int, gen: torch.Generator, device=None,
         cube_vel=z(c.cube_ring.shape[0], 3), cube_radius=torch.full_like(z(), cfg.cube_len),
         cube_mass=torch.full_like(z(), cfg.cube_mass),
         cube_active=torch.zeros(batch, dtype=torch.bool, device=device))
-    return reset(cfg, blank, gen)
+    return reset(cfg, blank, gen, ref_table)
 
 
-def reset(cfg: EnvConfig, state: EnvState, gen: torch.Generator) -> EnvState:
+def _sampling_reshape(ratio: torch.Tensor) -> torch.Tensor:
+    """Density-reshaped episode-start sampling (Environment.hpp:71-81)."""
+    return torch.where((ratio < 0.5) & (ratio > 0.0), ratio * 4.0 / 3.0, (2.0 * ratio + 1.0) / 3.0)
+
+
+def reset(cfg: EnvConfig, state: EnvState, gen: torch.Generator,
+          ref_table: torch.Tensor | None = None) -> EnvState:
     """reset() (Environment.hpp:547-635) of every env of the batch: random
     phase start, command resample, joint pose/vel perturbed +-30% around the
     gait reference, base velocity seeded from the command +-20%, random xy
     +-5 m; manual mode starts from the stand pose at rest. On terrain the base
     spawns at stand height above the ground under it. Dynamics params,
     terrain, the raw command and the last position target persist; under
-    ``cfg.crucial`` the attack spheres re-spawn around the robot, at rest."""
+    ``cfg.crucial`` the attack spheres re-spawn around the robot, at rest.
+    With a RefTraj table each env starts at a frame drawn with the reference's
+    density reshaping from the same uniform as its start time."""
     B, dev = state.gc.shape[0], state.gc.device
     c = _consts(cfg, dev)
     zeros = lambda *shape: torch.zeros((B,) + shape, device=dev)  # noqa: E731
     t0 = zeros() if cfg.manual else _uniform(gen, (B,), dev, 0.0, 1.0)
+    frame0 = torch.zeros(B, dtype=torch.int32, device=dev)
+    if _uses_table(cfg, ref_table) and not cfg.manual:
+        span = ref_table.shape[0] - cfg.episode_len - 10
+        frame0 = torch.clamp_min((span * _sampling_reshape(t0)).to(torch.int32), 0)
 
     upd = _update_references(cfg, gen, state.command, zeros(3), state.joint_ref,
-                             state.joint_dot_ref, t0, is_reset=True)
+                             state.joint_dot_ref, t0, frame0, is_reset=True, ref_table=ref_table)
     command, command_filtered = upd.command, upd.command_filtered
 
     stand = c.stand_gc.expand(B, 19)
@@ -525,11 +575,11 @@ def reset(cfg: EnvConfig, state: EnvState, gen: torch.Generator) -> EnvState:
         z0 = stand[:, 2] + tr.height(state.terrain, gc[:, 0], gc[:, 1])
         gc = torch.cat([gc[:, :2], z0[:, None], gc[:, 3:]], dim=-1)
 
-    obs, _, _, _ = _raw_observation(cfg, gen, gc, gv, command_filtered, t0)
+    obs, _, _, _ = _raw_observation(cfg, gen, gc, gv, command_filtered, t0, upd.phase)
 
     # post-obs reference regeneration (command_obs_update(false) at reset tail)
     upd2 = _update_references(cfg, gen, command, command_filtered, upd.joint_ref,
-                              upd.joint_dot_ref, t0, is_reset=False)
+                              upd.joint_dot_ref, t0, frame0, is_reset=False, ref_table=ref_table)
     obs = torch.cat([upd2.command_filtered, obs[:, 3:]], dim=-1)
 
     if cfg.crucial:  # re-spawn the attack ring (meteoriteAttack(true), :608-612)
@@ -543,8 +593,7 @@ def reset(cfg: EnvConfig, state: EnvState, gen: torch.Generator) -> EnvState:
         base_wrench=zeros(6), command=upd2.command, command_filtered=upd2.command_filtered,
         joint_ref=upd2.joint_ref, joint_ref_last=upd2.joint_ref,
         joint_dot_ref=upd2.joint_dot_ref, ee_ref=upd2.ee_ref,
-        current_time=t0 + cfg.control_dt,
-        frame_idx=torch.ones(B, dtype=torch.int32, device=dev),
+        current_time=t0 + cfg.control_dt, frame_idx=frame0 + 1,
         contact_filtered=zeros(4), contact_force_norm=zeros(4), contact_vel_norm=zeros(4),
         obs_double=obs, obs_last=obs, done=torch.zeros(B, dtype=torch.bool, device=dev),
         ep_return=zeros(), ep_len=torch.zeros(B, dtype=torch.int32, device=dev),
@@ -641,7 +690,8 @@ class _Diag(NamedTuple):
 
 def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
                gen: torch.Generator, tau_ff: torch.Tensor | None = None,
-               pd_scale: torch.Tensor | None = None) -> StepOut:
+               pd_scale: torch.Tensor | None = None,
+               ref_table: torch.Tensor | None = None) -> StepOut:
     """One control step of every env with auto-reset (blackpanther.py:793-854).
 
     The cfg.substeps (8) physics substeps, each after the PD torque from the
@@ -652,13 +702,14 @@ def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
     ``tau_ff``/``pd_scale`` ((B, 12) each, optional) are the Convert2Torque
     actuation of the JAX ``step``: a joint-torque feedforward and a scale on
     the PD feedback, held over the control step's substeps. On a terrain
-    config the call carries the heightmap and the envs' terrain rows (JAX
-    ``step_batch``'s ground_fn: vertical contact normal).
+    config the call carries the envs' terrain rows, with the heightmap or of
+    the analytic fractal (JAX ``step_batch``'s ground_fn: vertical contact
+    normal). A RefTraj ``ref_table`` changes only the references and the
+    phase observation: still one launch a control step.
 
     The attack spheres (``cfg.crucial``) and hard contact
     (``cfg.hard_contact``) run on :func:`step` only, as in the JAX package
     (blackpanther.py:809-812): here they raise."""
-    _check_supported(cfg)
     for flag, what in (("crucial", "the meteorite attacks"), ("hard_contact", "hard contact")):
         if getattr(cfg, flag):
             raise ValueError(f"step_batch runs the compliant no-attack physics; cfg.{flag} "
@@ -675,12 +726,13 @@ def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
     diag = _Diag(toe_pos=toe.permute(2, 0, 1), toe_vel=toe_vel.permute(2, 0, 1),
                  toe_force_norm=fnorm.T, toe_normal_force=fnormal.T)
     return _post_substeps(cfg, states, gen, gcT.T.contiguous(), gvT.T.contiguous(),
-                          tauT.T.contiguous(), diag, pre)
+                          tauT.T.contiguous(), diag, pre, ref_table)
 
 
 def step(cfg: EnvConfig, states: EnvState, actions: torch.Tensor, gen: torch.Generator,
          tau_ff: torch.Tensor | None = None,
-         pd_scale: torch.Tensor | None = None) -> StepOut:
+         pd_scale: torch.Tensor | None = None,
+         ref_table: torch.Tensor | None = None) -> StepOut:
     """One control step of every env with auto-reset on the per-env physics
     (blackpanther.py:654-703; the batched counterpart of JAX's
     ``vmap(step)``).
@@ -694,8 +746,8 @@ def step(cfg: EnvConfig, states: EnvState, actions: torch.Tensor, gen: torch.Gen
     zeroed at the control step's start and warm-started across its substeps.
     Under ``cfg.crucial`` the attack spheres' wrenches load the robot in
     every substep. ``tau_ff``/``pd_scale`` ((B, 12) each, optional) are the
-    Convert2Torque inputs, held over the substeps."""
-    _check_supported(cfg)
+    Convert2Torque inputs, held over the substeps; ``ref_table`` as in
+    :func:`step_batch`."""
     pre, f_ext_extra = _pre_substeps(cfg, states, actions, gen)
     pd = pd_torque.from_config(cfg)
     gc, gv, dt = pre.gc, pre.gv, cfg.simulation_dt
@@ -713,18 +765,22 @@ def step(cfg: EnvConfig, states: EnvState, actions: torch.Tensor, gen: torch.Gen
                 cfg.contact_slip_vel, f_ext_extra=f_ext_extra,
                 impulse_scale=cfg.contact_impulse_mass / dt)
             gc, gv = dyn.integrate(gc, gv, qdd, dt)
-    return _post_substeps(cfg, states, gen, gc, gv, tau, diag, pre)
+    return _post_substeps(cfg, states, gen, gc, gv, tau, diag, pre, ref_table)
 
 
 def _post_substeps(cfg: EnvConfig, state: EnvState, gen: torch.Generator, gc, gv,
-                   torque_applied, last_diag, pre: _PreOut) -> StepOut:
+                   torque_applied, last_diag, pre: _PreOut, ref_table=None) -> StepOut:
     """Everything after the physics substeps: observation, reward, reference
     update, termination and the branchless auto-reset. Shared by
     :func:`step` and :func:`step_batch`; ``last_diag`` is the last substep's
     :class:`_Diag` or ``phys.dynamics.StepDiagnostics``."""
     # -- observation at the new state (time = state.current_time)
     t = state.current_time
-    obs, v_body, w_body, R = _raw_observation(cfg, gen, gc, gv, state.command_filtered, t)
+    phase_now = None
+    if _uses_table(cfg, ref_table) and not cfg.manual:
+        phase_now = _table_rows(ref_table, state.frame_idx)[:, 25:27]
+    obs, v_body, w_body, R = _raw_observation(cfg, gen, gc, gv, state.command_filtered, t,
+                                              phase_now)
 
     # -- contact information (impulse-scaled force norm)
     contact_force_norm = last_diag.toe_force_norm * (cfg.simulation_dt / cfg.control_dt)
@@ -745,7 +801,8 @@ def _post_substeps(cfg: EnvConfig, state: EnvState, gen: torch.Generator, gc, gv
 
     # -- next references (command_obs_update(false) after reward, :784)
     upd = _update_references(cfg, gen, state.command, state.command_filtered,
-                             state.joint_ref, state.joint_dot_ref, t, is_reset=False)
+                             state.joint_ref, state.joint_dot_ref, t, state.frame_idx,
+                             is_reset=False, ref_table=ref_table)
     obs = torch.cat([upd.command_filtered, obs[:, 3:]], dim=-1)
 
     # -- obs low-pass (observe(), Environment.hpp:1251-1256)
@@ -772,7 +829,7 @@ def _post_substeps(cfg: EnvConfig, state: EnvState, gen: torch.Generator, gc, gv
         cube_radius=pre.cube_radius, cube_mass=pre.cube_mass, cube_active=pre.cube_active)
 
     # -- auto-reset with terminal reward (perAgentStep, VectorizedEnvironment.hpp:352-372)
-    out_state = _where(done, reset(cfg, new_state, gen), new_state)
+    out_state = _where(done, reset(cfg, new_state, gen, ref_table), new_state)
     info = {"reward_terms": rew.terms, "ep_return": new_state.ep_return,
             "ep_len": new_state.ep_len, "base_height": gc[:, 2], "contact": contact_flag}
     return StepOut(state=out_state, obs=normalize_obs(cfg, out_state.obs_double),

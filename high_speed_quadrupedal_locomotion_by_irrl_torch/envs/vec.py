@@ -5,7 +5,8 @@ over the per-env control step (``envs.blackpanther.step``, the counterpart
 of the JAX package's ``vmap(bp.step)``): every method takes and returns the
 batched :class:`~.blackpanther.EnvState`, and the randomness of one
 ``VecEnv`` comes from one ``torch.Generator`` on its device, seeded by
-:meth:`VecEnv.init`. :class:`NumpyVecEnv` is a host-side adapter with the
+:meth:`VecEnv.init`. An optional RefTraj table (:mod:`.reftraj`) is held
+once on the device and handed to every call. :class:`NumpyVecEnv` is a host-side adapter with the
 reference's ``RaisimGymVecEnv`` surface (step/observe/reset, the episode
 info dicts and the batched introspection getters, RaisimGymVecEnv.py:6-189),
 numpy in and out.
@@ -14,11 +15,13 @@ numpy in and out.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
+from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import figures
 from high_speed_quadrupedal_locomotion_by_irrl_torch.config import EnvConfig
 from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import blackpanther as bp
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
@@ -26,30 +29,30 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
 
 class VecEnv:
     """``cfg.num_envs`` BlackPanther MDPs stepped as one batch on the per-env
-    physics, on ``device`` (default ``cuda``)."""
+    physics, on ``device`` (default ``cuda``). ``ref_table``: an optional
+    (N, 30) RefTraj table (array or tensor), shared by every env."""
 
     def __init__(self, cfg: EnvConfig, ref_table=None, device=None):
-        if ref_table is not None:
-            raise NotImplementedError(
-                "RefTraj reference tables (envs/reftraj.py) are not in the PyTorch port yet "
-                "(ROADMAP.md, Queue 1 item 3)")
         self.cfg = cfg
         self.num_envs = cfg.num_envs
         self.ob_dim = bp.OBS_DIM
         self.act_dim = bp.ACT_DIM
         self.device = dev_mod.resolve(device)
+        self.ref_table = (None if ref_table is None
+                          else dev_mod.tensor(ref_table, self.device).contiguous())
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
     def init(self, seed: int | None = None) -> bp.EnvState:
         """Fresh envs, with the generator re-seeded (``cfg.seed`` by default)."""
         self.gen.manual_seed(self.cfg.seed if seed is None else seed)
-        return bp.env_init(self.cfg, self.num_envs, self.gen, self.device)
+        return bp.env_init(self.cfg, self.num_envs, self.gen, self.device,
+                           ref_table=self.ref_table)
 
     def step(self, state: bp.EnvState, action: torch.Tensor) -> bp.StepOut:
-        return bp.step(self.cfg, state, action, self.gen)
+        return bp.step(self.cfg, state, action, self.gen, ref_table=self.ref_table)
 
     def reset(self, state: bp.EnvState) -> bp.EnvState:
-        return bp.reset(self.cfg, state, self.gen)
+        return bp.reset(self.cfg, state, self.gen, self.ref_table)
 
     def observe(self, state: bp.EnvState) -> torch.Tensor:
         return bp.observe(self.cfg, state)
@@ -159,15 +162,12 @@ class NumpyVecEnv:
         self._video_gc = []
 
     def stop_recording_video(self):
-        """Stop capturing. Rendering the captured states needs
-        ``analysis/figures.py``, which is not in the port yet: with frames
-        captured this raises."""
+        """Stop capturing and render the captured states, if any, with the
+        writer behind ``cli/test --vid`` (:func:`..analysis.figures.rollout_animation`,
+        gif or mp4 by the name's suffix)."""
         gcs, self._video_gc = self._video_gc, None
         if gcs:
-            raise NotImplementedError(
-                f"rendering {len(gcs)} recorded frames to {self._video_path!r} needs "
-                "analysis/figures.py, which is not in the PyTorch port yet (ROADMAP.md, "
-                "Queue 1 item 6)")
+            figures.rollout_animation(SimpleNamespace(gc=np.stack(gcs)), self._video_path)
 
     def curriculum_update(self):
         pass

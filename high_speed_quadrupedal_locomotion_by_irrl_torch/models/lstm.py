@@ -198,8 +198,7 @@ def forward(params: PolicyParams, obs: torch.Tensor, state: torch.Tensor,
             done: torch.Tensor) -> ForwardOut:
     """Single-step forward (act model). obs (B, 35), state (B, S), done (B,):
     the done mask of the *previous* step resets the state. With per-row
-    params (:func:`per_row`; towers of one shape) row b runs weight set b;
-    logstd is then (B, act)."""
+    params (:func:`per_row`) row b runs weight set b; logstd is then (B, act)."""
     chs = _split_state(params, state)
     n_pi, n_v = len(params.pi_lstm), len(params.v_lstm)
     mask = done.to(obs.dtype).contiguous()
@@ -218,15 +217,17 @@ def forward(params: PolicyParams, obs: torch.Tensor, state: torch.Tensor,
             pi_chs.append((c_pi, pi_latent))
             v_chs.append((c_v, v_latent))
             continue
+        # towers that differ here in depth or width: one cell launch a tower (with one
+        # weight set a row, the per-row launch with the tower as both of its towers)
         if rows:
-            raise NotImplementedError("one weight set a row needs towers of one shape at "
-                                      "every layer (the landscape's anchors have them)")
-        # towers that differ here in depth or width: one cell launch a tower
+            cell = lambda w, x, c, h: pair(w, w, x, x, c, h, c, h, mask)[:2]  # noqa: E731
+        else:
+            cell = lambda w, x, c, h: _reset_cell(w, x, c, h, mask)  # noqa: E731
         if w_pi is not None:
-            c_pi, pi_latent = _reset_cell(w_pi, pi_latent, *chs[layer], mask)
+            c_pi, pi_latent = cell(w_pi, pi_latent, *chs[layer])
             pi_chs.append((c_pi, pi_latent))
         if w_v is not None:
-            c_v, v_latent = _reset_cell(w_v, v_latent, *chs[n_pi + layer], mask)
+            c_v, v_latent = cell(w_v, v_latent, *chs[n_pi + layer])
             v_chs.append((c_v, v_latent))
     if rows:
         mean = torch.bmm(pi_latent[:, None], params.pi_w)[:, 0] + params.pi_b

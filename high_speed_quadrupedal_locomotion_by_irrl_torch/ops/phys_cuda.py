@@ -11,15 +11,19 @@ body:
   each after the PD torque of :mod:`..ops.pd_torque` from the fresh state, in
   one launch with the state in registers. Its optional Convert2Torque inputs
   (a torque feedforward and a PD scale, (12, B) each) are held over the
-  substeps. Its optional terrain (:class:`..phys.terrain.TerrainRows`: the
-  shared heightmap and per-env offset, cell and height scale) puts the
-  ground under each toe and base corner at its bilinear height. Its plain
-  version is :func:`control_step_plain`, the Python loop over the two plain
-  functions. :func:`substep` stays on flat ground, as the TPU kernel does.
+  substeps. Its optional terrain puts the ground under each toe and base
+  corner at its height: the bilinear height of the shared heightmap
+  (:class:`..phys.terrain.TerrainRows`: the grid and per-env offset, cell and
+  height scale), or the analytic fractal of per-env seeds and height scales
+  (:class:`..phys.terrain.TerrainParams`), which is its own instantiation of
+  the kernel. Its plain version is :func:`control_step_plain`, the Python
+  loop over the two plain functions. :func:`substep` stays on flat ground, as
+  the TPU kernel does.
 
 For tensors on the CPU both run their plain version; for CUDA tensors they
 launch the kernel (four lanes an env, one per leg) or raise, never falling
-back. ``launches`` counts the kernel launches of both.
+back. ``launches`` counts the kernel launches of both, ``analytic_launches``
+those of the control step on the analytic fractal (counted in both).
 
 The wrappers pack the per-env parameters as (208, B) rows in the layout of
 ``phys_pallas.pack_params``; the kernels write one (69, B) or (81, B) output
@@ -44,6 +48,7 @@ OUT_ROWS = 19 + 18 + 12 + 12 + 4 + 4
 STEP_OUT_ROWS = OUT_ROWS + 12     # + the last substep's torque
 
 launches = 0  # kernel launches made by substep() and control_step() in this process
+analytic_launches = 0  # of which control_step() launches on the analytic fractal
 
 
 def pack_params(P: lanes.LaneParams) -> torch.Tensor:
@@ -69,7 +74,7 @@ def _fns():
     sub.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_float] * 3 + [ctypes.c_void_p]
     step.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
                      + [ctypes.POINTER(ctypes.c_float), ctypes.c_int]
-                     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4)
+                     + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5)
     sub.restype = step.restype = ctypes.c_int
     return sub, step
 
@@ -90,7 +95,11 @@ def _check(name: str, x: torch.Tensor, rows: int | None, B: int, device) -> None
         raise ValueError(f"{name}: need a contiguous tensor")
 
 
-def _check_terrain(terrain: tr.TerrainRows, B: int, device) -> None:
+def _check_terrain(terrain: tr.TerrainRows | tr.TerrainParams, B: int, device) -> None:
+    if isinstance(terrain, tr.TerrainParams):
+        _check("terrain seed", terrain.seed, None, B, device)
+        _check("terrain z_scale", terrain.z_scale, None, B, device)
+        return
     g = terrain.grid
     if g.device != device or g.dtype != torch.float32 or g.dim() != 2 or not g.is_contiguous():
         raise ValueError(f"terrain grid: need a contiguous float32 (ny, nx) tensor on {device}, "
@@ -140,7 +149,7 @@ def substep(P: lanes.LaneParams, gcT: torch.Tensor, gvT: torch.Tensor,
 def control_step_plain(P: lanes.LaneParams, pd: pdt.PDConsts, gcT, gvT, ptargetT,
                        torque_norm_lastT, base_wrenchT, n_substeps: int, slip_vel: float,
                        impulse_scale: float, dt: float, tau_ffT=None, pd_scaleT=None,
-                       terrain: tr.TerrainRows | None = None):
+                       terrain: tr.TerrainRows | tr.TerrainParams | None = None):
     """The plain version of :func:`control_step`: ``n_substeps`` times the
     plain PD torque from the fresh state, then the plain substep."""
     ptarget, tnl = ptargetT.T, torque_norm_lastT.T
@@ -158,7 +167,7 @@ def control_step_plain(P: lanes.LaneParams, pd: pdt.PDConsts, gcT, gvT, ptargetT
 def _control_step_kernel(P, pd, gcT, gvT, ptargetT, torque_norm_lastT, base_wrenchT,
                          n_substeps, slip_vel, impulse_scale, dt, tau_ffT=None, pd_scaleT=None,
                          terrain=None):
-    global launches
+    global launches, analytic_launches
     device, B = gcT.device, gcT.shape[-1]
     prm = pack_params(P)
     for name, x, rows in (("params", prm, P_ROWS), ("gcT", gcT, 19), ("gvT", gvT, 18),
@@ -171,7 +180,15 @@ def _control_step_kernel(P, pd, gcT, gvT, ptargetT, torque_norm_lastT, base_wren
     if terrain is not None:
         _check_terrain(terrain, B, device)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    ny, nx = (0, 0) if terrain is None else terrain.grid.shape
+    analytic = isinstance(terrain, tr.TerrainParams)
+    if terrain is None:
+        ground = (None, 0, 0, None, None, None, None)
+    elif analytic:
+        ground = (None, 0, 0, None, None, terrain.z_scale.data_ptr(), terrain.seed.data_ptr())
+    else:
+        ny, nx = terrain.grid.shape
+        ground = (terrain.grid.data_ptr(), nx, ny, terrain.offset.data_ptr(),
+                  terrain.cell.data_ptr(), terrain.z_scale.data_ptr(), None)
     out = torch.empty((STEP_OUT_ROWS, B), dtype=torch.float32, device=device)
     consts = (ctypes.c_float * 22)(*pack_pd_consts(pd))
     _, fn = _fns()
@@ -179,13 +196,11 @@ def _control_step_kernel(P, pd, gcT, gvT, ptargetT, torque_norm_lastT, base_wren
         err = fn(prm.data_ptr(), gcT.data_ptr(), gvT.data_ptr(), ptargetT.data_ptr(),
                  torque_norm_lastT.data_ptr(), base_wrenchT.data_ptr(), ptr(tau_ffT),
                  ptr(pd_scaleT), out.data_ptr(), B, int(n_substeps), float(slip_vel),
-                 float(impulse_scale), float(dt), consts, int(pd.motor_dynamics),
-                 *((None, 0, 0, None, None, None) if terrain is None else (
-                     terrain.grid.data_ptr(), nx, ny, terrain.offset.data_ptr(),
-                     terrain.cell.data_ptr(), terrain.z_scale.data_ptr())),
+                 float(impulse_scale), float(dt), consts, int(pd.motor_dynamics), *ground,
                  _stream(device))
     _build.check(err, "phys_control_step_launch")
     launches += 1
+    analytic_launches += analytic
     return _views(out, B) + (out[69:81],)
 
 
@@ -194,7 +209,7 @@ def control_step(P: lanes.LaneParams, pd: pdt.PDConsts, gcT: torch.Tensor, gvT: 
                  base_wrenchT: torch.Tensor, n_substeps: int, slip_vel: float,
                  impulse_scale: float, dt: float, tau_ffT: torch.Tensor | None = None,
                  pd_scaleT: torch.Tensor | None = None,
-                 terrain: tr.TerrainRows | None = None):
+                 terrain: tr.TerrainRows | tr.TerrainParams | None = None):
     """One control step of physics. (19,B),(18,B) state, (12,B) position
     targets and last normalized torques, (6,B) base wrench, optional (12,B)
     torque feedforward and PD scale, optional terrain -> (gcT', gvT') after
@@ -202,7 +217,8 @@ def control_step(P: lanes.LaneParams, pd: pdt.PDConsts, gcT: torch.Tensor, gvT: 
     force norm (4,B) and normal force (4,B), and the last substep's joint
     torque (12,B). ``None`` for a Convert2Torque input is the PD path (a
     feedforward of 0, a scale of 1), bit for bit; ``None`` for the terrain is
-    flat ground."""
+    flat ground, a :class:`..phys.terrain.TerrainParams` (B,) rows of the
+    analytic fractal."""
     if n_substeps < 1:
         raise ValueError(f"control step: need n_substeps >= 1, got {n_substeps}")
     args = (P, pd, gcT, gvT, ptargetT, torque_norm_lastT, base_wrenchT, n_substeps, slip_vel,

@@ -4,8 +4,9 @@ over leading dims.
 Port of ``phys/contact.py``: a spring-damper normal force with smooth
 Coulomb friction at 4 toe spheres (r = 0.0275) and the 8 corners of the
 base's 0.3 x 0.2 x 0.1 box. The ground is flat (``tp=None``: height 0,
-normal (0, 0, 1)) or the sampled heightmap of :mod:`.terrain` (a
-:class:`~.terrain.SampledTerrain` whose fields carry the state's batch dims),
+normal (0, 0, 1)) or a terrain of :mod:`.terrain` (a
+:class:`~.terrain.SampledTerrain` or an analytic
+:class:`~.terrain.TerrainParams` whose fields carry the state's batch dims),
 with the JAX package's height, central-difference normal and projected gap.
 """
 
@@ -29,14 +30,16 @@ def _corners(device: torch.device) -> torch.Tensor:
     return dev_mod.tensor(_CORNERS, device)
 
 
-def _height(tp: _terrain.SampledTerrain, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Heightmap under points (..., k) of envs whose fields are (...)."""
+def _height(tp, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Terrain under points (..., k) of envs whose fields are (...)."""
     f = lambda t: t[..., None]  # noqa: E731  the point axis
+    if isinstance(tp, _terrain.TerrainParams):
+        return _terrain.analytic_height(f(tp.seed), f(tp.z_scale), x, y)
     return _terrain._bilinear(_terrain.grid(x.device), f(tp.offset[..., 0]),
                               f(tp.offset[..., 1]), f(tp.cell), f(tp.z_scale), x, y)
 
 
-def _normal(tp: _terrain.SampledTerrain, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def _normal(tp, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     eps = 1e-3
     dhdx = (_height(tp, x + eps, y) - _height(tp, x - eps, y)) / (2 * eps)
     dhdy = (_height(tp, x, y + eps) - _height(tp, x, y - eps)) / (2 * eps)

@@ -210,7 +210,7 @@ def contact_wrenches(params: RobotParams, kin: Kinematics, gv: torch.Tensor, tp,
 
     Returns (f_ext (..., 13, 6), toe force norms (..., 4), toe normal forces
     (..., 4), toe velocities (..., 4, 3)). ``tp``: None for flat ground, or a
-    :class:`~.terrain.SampledTerrain` (see :mod:`.contact`)."""
+    terrain of :mod:`.terrain` (see :mod:`.contact`)."""
     params = broadcast_params(params, gv.shape[:-1])
     kn, dn, mu = (_scalar(params.contact_stiffness), _scalar(params.contact_damping),
                   _scalar(params.friction))

@@ -64,7 +64,7 @@ def toe_jacobians(kin) -> torch.Tensor:
 def contact_frames(tp, toe_pos: torch.Tensor):
     """Per-toe gap (..., 4) and orthonormal contact basis (..., 4, 3, 3),
     columns [n, t1, t2]. gap < 0 marks an active contact. ``tp``: None for
-    flat ground, or a :class:`~.terrain.SampledTerrain` with the state's
+    flat ground, or a terrain of :mod:`.terrain` with the state's
     batch dims (the terrain's own normal)."""
     if tp is None:
         ground = torch.zeros_like(toe_pos[..., 0])

@@ -1,16 +1,21 @@
-"""Procedural terrain as a sampled heightmap.
+"""Procedural terrain: a sampled heightmap or analytic fractal value noise.
 
-Port of the sampled half of ``phys/terrain.py``: the reference's Raisim
-heightmap (500 x 20 m, 5000 x 500 samples, fractal value noise of 3 octaves,
-lacunarity 2, gain 0.25, Environment.hpp:252-265) with a bilinear lookup.
-One grid is shared by every env; an env's own stretch of ground comes from
-a random (x, y) offset into the map (:class:`SampledTerrain`). The grid is
-built once a process by the same float64 numpy code as the JAX package's,
-cast to float32, and kept once a device as a tensor.
+Port of ``phys/terrain.py``. Both represent the reference's Raisim terrain
+(500 x 20 m, 5000 x 500 samples, fractal value noise of 3 octaves,
+lacunarity 2, gain 0.25, Environment.hpp:252-265):
 
-The analytic fractal (``cfg.terrain_sampled=False``) is not in the port: its
-hash ``fract(sin(.) * 43758.5453)`` turns a one-ulp difference between two
-``sin`` implementations into another terrain (ROADMAP.md, Queue 1 item 3).
+* :class:`SampledTerrain` (``cfg.terrain_sampled``, the default): the
+  heightmap with a bilinear lookup. One grid is shared by every env; an env's
+  own stretch of ground comes from a random (x, y) offset into the map. The
+  grid is built once a process by the same float64 numpy code as the JAX
+  package's, cast to float32, and kept once a device as a tensor.
+* :class:`TerrainParams` (``cfg.terrain_sampled=False``): the value noise
+  evaluated at the query points, with a per-env seed and height scale. Its
+  hash ``fract(sin(.) * 43758.5453)`` is computed in float32 in the JAX
+  order of operations; a one-ulp difference between two ``sin``
+  implementations still flips the hash now and then (up to 0.2 m at under
+  1 % of points), so the port matches JAX's terrain in its statistics, not
+  point for point.
 """
 
 from __future__ import annotations
@@ -24,6 +29,12 @@ import torch
 from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
 
 MAP_X, MAP_Y = 500.0, 20.0   # metres covered by the grid
+
+
+class TerrainParams(NamedTuple):
+    """Per-env analytic fractal terrain; z_scale 0 is flat ground."""
+    z_scale: torch.Tensor   # (B,) height scale (the curriculum writes it)
+    seed: torch.Tensor      # (B,) float, decorrelates envs
 
 
 class SampledTerrain(NamedTuple):
@@ -110,8 +121,57 @@ def flat(batch: int, device) -> SampledTerrain:
     return at_offsets(torch.zeros((batch, 2), dtype=dev_mod.DTYPE, device=device), 0.0)
 
 
-def rows(tp: SampledTerrain) -> TerrainRows:
-    """The kernel's view of ``tp``: the grid on its device, offsets as rows."""
+def fractal(gen: torch.Generator, batch: int, z_scale: float, device) -> TerrainParams:
+    """``batch`` envs of analytic terrain, each with a seed uniform in [0, 1000)
+    (JAX ``fractal``). ``gen`` must live on ``device``."""
+    u = torch.rand((batch,), generator=gen, device=device, dtype=dev_mod.DTYPE)
+    return with_seeds(1000.0 * u, z_scale)
+
+
+def with_seeds(seed: torch.Tensor, z_scale: float) -> TerrainParams:
+    """Analytic terrain of the given (B,) seeds, every env at ``z_scale``."""
+    seed = seed.to(dev_mod.DTYPE).contiguous()
+    return TerrainParams(z_scale=torch.full_like(seed, z_scale), seed=seed)
+
+
+def _hash2(ix: torch.Tensor, iy: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    h = torch.sin(ix * 127.1 + iy * 311.7 + seed * 74.7) * 43758.5453
+    return (h - torch.floor(h)) * 2.0 - 1.0
+
+
+def _value_noise(x: torch.Tensor, y: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    ix, iy = torch.floor(x), torch.floor(y)
+    fx, fy = x - ix, y - iy
+    # smootherstep keeps C2 continuity so normals are well-defined
+    sx = fx * fx * fx * (fx * (fx * 6.0 - 15.0) + 10.0)
+    sy = fy * fy * fy * (fy * (fy * 6.0 - 15.0) + 10.0)
+    v00 = _hash2(ix, iy, seed)
+    v10 = _hash2(ix + 1, iy, seed)
+    v01 = _hash2(ix, iy + 1, seed)
+    v11 = _hash2(ix + 1, iy + 1, seed)
+    return (v00 * (1 - sx) * (1 - sy) + v10 * sx * (1 - sy)
+            + v01 * (1 - sx) * sy + v11 * sx * sy)
+
+
+def analytic_height(seed: torch.Tensor, z_scale: torch.Tensor, x: torch.Tensor,
+                    y: torch.Tensor) -> torch.Tensor:
+    """The JAX package's analytic ``height``, operation for operation: 3
+    octaves (Environment.hpp:261) of value noise, lacunarity 2, gain 0.25.
+    ``seed`` and ``z_scale`` broadcast against the points."""
+    h = torch.zeros_like(x)
+    freq, gain = 1.0, 1.0
+    for _ in range(3):
+        h = h + gain * _value_noise(x * freq, y * freq, seed)
+        freq *= 2.0
+        gain *= 0.25
+    return z_scale * h
+
+
+def rows(tp: SampledTerrain | TerrainParams) -> TerrainRows | TerrainParams:
+    """The kernel's view of ``tp``: the grid on its device and the offsets as
+    rows; an analytic terrain's (B,) rows, contiguous."""
+    if isinstance(tp, TerrainParams):
+        return TerrainParams(z_scale=tp.z_scale.contiguous(), seed=tp.seed.contiguous())
     return TerrainRows(grid=grid(tp.offset.device), offset=tp.offset.T.contiguous(),
                        cell=tp.cell.contiguous(), z_scale=tp.z_scale.contiguous())
 
@@ -132,17 +192,20 @@ def _bilinear(g: torch.Tensor, ox, oy, cell, z_scale, x, y) -> torch.Tensor:
                       + h01 * (1 - fx) * fy + h11 * fx * fy)
 
 
-def height(tp: SampledTerrain | TerrainRows, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def height(tp: SampledTerrain | TerrainRows | TerrainParams, x: torch.Tensor,
+           y: torch.Tensor) -> torch.Tensor:
     """Terrain height under (x, y): (B,) points against (B,) envs, or (B, k)
     points against the same envs."""
     if isinstance(tp, TerrainRows):
         return _bilinear(tp.grid, tp.offset[0], tp.offset[1], tp.cell, tp.z_scale, x, y)
     per_env = lambda t: t.reshape(t.shape + (1,) * (x.dim() - t.dim()))  # noqa: E731
+    if isinstance(tp, TerrainParams):
+        return analytic_height(per_env(tp.seed), per_env(tp.z_scale), x, y)
     return _bilinear(grid(x.device), per_env(tp.offset[..., 0]), per_env(tp.offset[..., 1]),
                      per_env(tp.cell), per_env(tp.z_scale), x, y)
 
 
-def normal(tp: SampledTerrain, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def normal(tp: SampledTerrain | TerrainParams, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Unit surface normal (..., 3) from central differences; (0, 0, 1) on
     flat ground."""
     eps = 1e-3

@@ -11,9 +11,8 @@ A failed build raises with the compiler's output. API:
     resample(table, dt_in, n_out, dt_out) -> float32 ndarray
     TelemetryRing(capacity, record_size)  -> lock-free push/pop ring
     StateServer(port) / StateClient(port) -> state streaming over TCP
-
-The deployment policy runtime (``NativePolicy`` in the JAX package) is not
-ported yet.
+    NativePolicy(model_dir)    -> the robot-side LSTM controller of a bp5
+                                  CSV export, in C
 """
 
 from __future__ import annotations
@@ -52,6 +51,13 @@ _SIGNATURES = {
     "irrl_server_clients": (ctypes.c_long, [ctypes.c_void_p]),
     "irrl_server_update": (None, [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]),
     "irrl_server_destroy": (None, [ctypes.c_void_p]),
+    "irrl_policy_create": (ctypes.c_void_p, [ctypes.c_char_p]),
+    "irrl_policy_obs_dim": (ctypes.c_int, [ctypes.c_void_p]),
+    "irrl_policy_act_dim": (ctypes.c_int, [ctypes.c_void_p]),
+    "irrl_policy_reset": (None, [ctypes.c_void_p]),
+    "irrl_policy_state": (ctypes.c_long, [ctypes.c_void_p, ctypes.c_void_p]),
+    "irrl_policy_act": (None, [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]),
+    "irrl_policy_destroy": (None, [ctypes.c_void_p]),
 }
 
 
@@ -220,3 +226,54 @@ class StateClient:
         if getattr(self, "_sock", None):
             self._sock.close()
             self._sock = None
+
+
+class NativePolicy:
+    """Robot-side deployment runtime: the native C twin of the reference's
+    NumPy onboard controller (CustomerLstmNN.predict, CustomerLstmNN.py:96-134).
+    Loads a bp5 CSV export and runs the stacked-LSTM actor at 500 Hz with no
+    Python or PyTorch in the control loop (the C side keeps the recurrent
+    state); it agrees with :func:`..models.lstm.deterministic_action` on the
+    same export."""
+
+    def __init__(self, model_dir: str):
+        self._lib = _load()
+        self._h = self._lib.irrl_policy_create(os.fsencode(model_dir))
+        if not self._h:
+            raise IOError(f"failed to load a bp5 CSV policy from {model_dir}")
+        self.obs_dim = self._lib.irrl_policy_obs_dim(self._h)
+        self.act_dim = self._lib.irrl_policy_act_dim(self._h)
+
+    def _handle(self):
+        if not self._h:
+            raise RuntimeError("the policy is closed")
+        return self._h
+
+    def reset(self) -> None:
+        """Zero the recurrent state (episode boundary, robot power-on)."""
+        self._lib.irrl_policy_reset(self._handle())
+
+    def act(self, obs: np.ndarray) -> np.ndarray:
+        """One control step: normalized obs -> action clipped to [-1, 1].
+        Advances the internal LSTM state."""
+        obs = np.ascontiguousarray(obs, dtype=np.float32)
+        if obs.shape != (self.obs_dim,):
+            raise ValueError(f"obs shape {obs.shape} != ({self.obs_dim},)")
+        out = np.empty(self.act_dim, dtype=np.float32)
+        self._lib.irrl_policy_act(self._handle(), _ptr(obs), _ptr(out))
+        return out
+
+    def state(self) -> np.ndarray:
+        """Recurrent state snapshot, per-layer [c|h] packing (the layout of
+        models/lstm.state_size)."""
+        h = self._handle()
+        out = np.empty(self._lib.irrl_policy_state(h, None), dtype=np.float32)
+        return out[:self._lib.irrl_policy_state(h, _ptr(out))]
+
+    def close(self) -> None:
+        if getattr(self, "_h", None):
+            self._lib.irrl_policy_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()

@@ -17,6 +17,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch import config as tconfig
 from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import blackpanther as tbp
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import pd_torque, phys_cuda
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as tmdl
+from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import terrain as ttr
 from high_speed_quadrupedal_locomotion_by_irrl_torch.robot import gait as tgait
 from high_speed_quadrupedal_locomotion_by_irrl_tpu import config as jconfig
 from high_speed_quadrupedal_locomotion_by_irrl_tpu.envs import blackpanther as jbp
@@ -232,11 +233,23 @@ def test_training_config_steps_and_resets():
 
 @pytest.mark.parametrize("flag", ["crucial", "hard_contact", "terrain"])
 def test_unported_modes_raise(flag):
-    # terrain runs on the sampled heightmap; the analytic fractal still raises
+    # the analytic fractal terrain runs: on JAX's seeds env_init spawns where JAX's
+    # does (heights within 1e-3 m: the float32 hash), and both control steps step it
     if flag == "terrain":
+        jcfg = jconfig.test_default().replace(terrain=True, terrain_sampled=False)
         cfg = tconfig.test_default().replace(terrain=True, terrain_sampled=False)
-        with pytest.raises(NotImplementedError, match="terrain_sampled"):
-            tbp.env_init(cfg, 1, torch.Generator().manual_seed(0), "cpu")
+        js = jax.vmap(lambda k: jbp.env_init(jcfg, k))(jax.random.split(jax.random.PRNGKey(0), 2))
+        gen = torch.Generator().manual_seed(0)
+        s = tbp.env_init(cfg, 2, gen, "cpu",
+                         terrain_seed=torch.from_numpy(np.array(js.terrain.seed)))
+        assert isinstance(s.terrain, ttr.TerrainParams)
+        np.testing.assert_allclose(s.gc.numpy(), np.asarray(js.gc), atol=1e-3, rtol=0)
+        assert np.abs(np.asarray(js.gc)[:, 2] - tmdl.stand_gc(0.0)[2]).max() > 1e-3
+        np.testing.assert_allclose(tbp.observe(cfg, s).numpy(),
+                                   np.asarray(jax.vmap(lambda x: jbp.observe(jcfg, x))(js)),
+                                   atol=1e-6)
+        for step in (tbp.step_batch, tbp.step):
+            assert torch.isfinite(step(cfg, s, torch.zeros(2, 12), gen).state.gc).all()
         return
     # the attacks and hard contact run on the per-env step only; step_batch refuses
     # them, as the JAX package's asserts (blackpanther.py:809-812), and names step

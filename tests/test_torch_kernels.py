@@ -15,7 +15,8 @@ against the plain loop at the SRB closed loop's impulse scale, and leaving
 them out must equal, bit for bit, a feedforward of 0 and a scale of 1. The
 control step on terrain (the heightmap lookup under each toe and base corner)
 is held against its plain loop at chain (c)'s tolerances, and with a height
-scale of 0 must give the flat kernel's bits.
+scale of 0 must give the flat kernel's bits; so is the control step on the
+analytic fractal (its own instantiation of the kernel).
 """
 
 import numpy as np
@@ -247,6 +248,47 @@ def test_control_step_refuses_bad_terrain(cuda):
                        (terr._replace(offset=terr.offset.T.contiguous()), "offset.*shape"),
                        (terr._replace(cell=terr.cell[:3]), "cell.*shape"),
                        (terr._replace(z_scale=terr.z_scale.cpu()), "z_scale.*float32")):
+        with pytest.raises(ValueError, match=match):
+            phys_cuda.control_step(*args, *tail, terrain=bad)
+
+
+def analytic_inputs(B, seed, device, motor_dynamics, z_scale=0.1):
+    """Control-step inputs on the analytic fractal: seeds over [0, 1000), each
+    base 0.30 m above the ground under it."""
+    args = list(_control_inputs(B, seed, device, motor_dynamics))
+    rng = np.random.default_rng(seed + 5)
+    tp = terrain.with_seeds(torch.tensor(rng.uniform(0.0, 1000.0, B), device=device), z_scale)
+    gc = args[2].clone()
+    gc[2] += terrain.height(tp, gc[0], gc[1])
+    args[2] = gc
+    return args, terrain.rows(tp)
+
+
+@pytest.mark.parametrize("B", [1024, 37, 5])
+@pytest.mark.parametrize("motor_dynamics", [False, True])
+def test_control_step_on_analytic_terrain_matches_plain(cuda, B, motor_dynamics):
+    cfg = config.test_default()
+    args, terr = analytic_inputs(B, B + 17, cuda, motor_dynamics)
+    tail = (cfg.substeps, cfg.contact_slip_vel, 0.0, cfg.simulation_dt)
+    before, before_analytic = phys_cuda.launches, phys_cuda.analytic_launches
+    got = phys_cuda.control_step(*args, *tail, terrain=terr)
+    torch.cuda.synchronize()
+    assert (phys_cuda.launches, phys_cuda.analytic_launches) == (before + 1, before_analytic + 1)
+    plain = phys_cuda.control_step_plain(*args, *tail, terrain=terr)
+    flat = phys_cuda.control_step_plain(*args, *tail)
+    assert (plain[5] > 0).any(), "no toe in contact: the contact branch went untested"
+    assert not torch.equal(plain[5], flat[5]), "the ground height changed no contact force"
+    for i, atol in enumerate(CHAIN_C_ATOL):
+        torch.testing.assert_close(got[i], plain[i], atol=atol, rtol=1e-3 if i in (4, 5) else 0)
+
+
+def test_control_step_refuses_bad_analytic_terrain(cuda):
+    args, terr = analytic_inputs(4, 0, cuda, False)
+    tail = (8, 0.1, 0.0, 2.5e-4)
+    for bad, match in ((terr._replace(seed=terr.seed.cpu()), "seed.*float32"),
+                       (terr._replace(seed=terr.seed.double()), "seed.*float32"),
+                       (terr._replace(seed=terr.seed[:3]), "seed.*shape"),
+                       (terr._replace(z_scale=terr.z_scale[None]), "z_scale.*shape")):
         with pytest.raises(ValueError, match=match):
             phys_cuda.control_step(*args, *tail, terrain=bad)
 
@@ -588,6 +630,31 @@ def test_policy_forward_with_per_row_weights(cuda):
     got = lstm.forward(stacked, obs.to(cuda), state.to(cuda), done.to(cuda))
     torch.cuda.synchronize()
     assert (lstm_cuda.launches, lstm_cuda.rows_launches) == (before[0], before[1] + 2)
+    want = lstm.forward(landscape.blend_params([_to_cpu(p) for p in ps], w), obs, state, done)
+    for g_, w_ in zip(got[:3], want[:3]):
+        torch.testing.assert_close(g_.cpu(), w_, atol=1e-5, rtol=0)
+
+
+def test_policy_forward_with_per_row_weights_and_unequal_towers(cuda):
+    """A value tower of one layer of 32: the first layer runs each tower
+    alone through the per-row launch, the second the policy tower alone."""
+    B = 21
+    ps = []
+    for s in range(3):
+        g = torch.Generator(device=cuda).manual_seed(s)
+        pi, v = lstm.init(g, device=cuda), lstm.init(g, n_lstm=(32,), device=cuda)
+        ps.append(lstm.PolicyParams(pi_lstm=pi.pi_lstm, v_lstm=v.v_lstm, pi_w=pi.pi_w,
+                                    pi_b=pi.pi_b, logstd=pi.logstd, vf_w=v.vf_w, vf_b=v.vf_b))
+    from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import landscape
+    w = landscape.simplex_grid(0.2)
+    stacked = landscape.blend_params(ps, w)
+    g = torch.Generator().manual_seed(4)
+    obs, state = torch.randn(B, 35, generator=g), torch.randn(B, 2 * 96 + 2 * 32, generator=g)
+    done = (torch.rand(B, generator=g) < 0.3).float()
+    before = lstm_cuda.rows_launches
+    got = lstm.forward(stacked, obs.to(cuda), state.to(cuda), done.to(cuda))
+    torch.cuda.synchronize()
+    assert lstm_cuda.rows_launches == before + 3
     want = lstm.forward(landscape.blend_params([_to_cpu(p) for p in ps], w), obs, state, done)
     for g_, w_ in zip(got[:3], want[:3]):
         torch.testing.assert_close(g_.cpu(), w_, atol=1e-5, rtol=0)

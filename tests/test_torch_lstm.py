@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import landscape as tls
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import io as tio
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm as tlstm
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import lstm_cuda
@@ -108,6 +109,36 @@ def test_forward_towers_of_different_shape_match_jax(v_layers):
         np.testing.assert_allclose(to.value.numpy(), np.asarray(jo.value), atol=1e-5)
         np.testing.assert_allclose(to.state.numpy(), np.asarray(jo.state), atol=1e-5)
         js, ts = jo.state, to.state
+
+
+@pytest.mark.parametrize("v_layers", [(48,), (32, 48)])
+def test_per_row_forward_with_towers_of_different_shape_matches_jax(v_layers):
+    """One weight set a row (the landscape's blends) with a value tower of
+    other depth or widths: the layers the towers do not share in shape run
+    each tower alone, and every row matches JAX's forward of its own blend."""
+    B = 3
+    anchors = []
+    for k in jax.random.split(jax.random.PRNGKey(7), 2):
+        ka, kb = jax.random.split(k)
+        ja, jb = jlstm.init(ka, n_lstm=(48, 48)), jlstm.init(kb, n_lstm=v_layers)
+        anchors.append(ja._replace(v_lstm=jb.v_lstm, vf_w=jb.vf_w, vf_b=jb.vf_b))
+    w = np.array([[1.0, 0.0], [0.5, 0.5], [0.2, 0.8]], np.float32)
+    jstack = jax.tree.map(lambda a, b: jnp.stack([wi[0] * a + wi[1] * b for wi in w]), *anchors)
+    stacked = tls.blend_params([tio.policy_params_from_numpy(jax.tree.map(np.asarray, p),
+                                                             device="cpu") for p in anchors], w)
+    assert tlstm.per_row(stacked)
+    rng = np.random.default_rng(12)
+    S = 2 * (48 + 48) + 2 * sum(v_layers)
+    obs = rng.normal(size=(B, 35)).astype(np.float32)
+    state = (0.5 * rng.normal(size=(B, S))).astype(np.float32)
+    done = np.array([0.0, 1.0, 0.0], np.float32)
+    jo = jax.vmap(lambda p, o, s, d: jlstm.forward(p, o[None], s[None], d[None]))(
+        jstack, jnp.asarray(obs), jnp.asarray(state), jnp.asarray(done))
+    to = tlstm.forward(stacked, torch.from_numpy(obs), torch.from_numpy(state),
+                       torch.from_numpy(done))
+    np.testing.assert_allclose(to.mean.numpy(), np.asarray(jo.mean)[:, 0], atol=1e-5)
+    np.testing.assert_allclose(to.value.numpy(), np.asarray(jo.value)[:, 0], atol=1e-5)
+    np.testing.assert_allclose(to.state.numpy(), np.asarray(jo.state)[:, 0], atol=1e-5)
 
 
 def test_loader_matches_jax_loader():

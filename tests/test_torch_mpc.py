@@ -12,7 +12,9 @@ per-env ``bp.step`` (``phys/dynamics.py``), as the evaluation path does
 to rounding over the first steps and drift apart slowly after contact events.
 """
 
+import json
 import os
+import re
 from types import SimpleNamespace
 
 import jax
@@ -34,6 +36,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as tmdl
 from high_speed_quadrupedal_locomotion_by_irrl_tpu import config as jconfig
 from high_speed_quadrupedal_locomotion_by_irrl_tpu.analysis import parity as jparity
 from high_speed_quadrupedal_locomotion_by_irrl_tpu.analysis import rawdata as jrawdata
+from high_speed_quadrupedal_locomotion_by_irrl_tpu.analysis import viewer as jviewer
 from high_speed_quadrupedal_locomotion_by_irrl_tpu.envs import blackpanther as jbp
 from high_speed_quadrupedal_locomotion_by_irrl_tpu.models import io as jio
 from high_speed_quadrupedal_locomotion_by_irrl_tpu.mpc import runtime as jruntime
@@ -227,9 +230,46 @@ def test_cli_mpc_contact_flags_match_jax_fk():
     assert 0 < want.sum() < want.size
 
 
-def test_cli_mpc_raises_for_what_is_not_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="viewer"):
-        tcli.main(["--vx", "1", "--viewer", os.devnull, "--device", "cpu"])
+def viewer_data(path: str) -> dict:
+    """The frame data a viewer HTML embeds; the file must be self-contained."""
+    html = open(path).read()
+    assert "http://" not in html and "https://" not in html and "<canvas" in html
+    return json.loads(re.search(r"const D = (\{.*?\});\n", html, re.S).group(1))
+
+
+def cli_viewer_matches_jax(argv: list, tmp_path, monkeypatch) -> dict:
+    """``cli.mpc ... --viewer``: the HTML holds the last command's rollout,
+    frame for frame what JAX's viewer.write_html writes from the same log
+    (JAX cli/mpc.py:97-100)."""
+    seen = []
+    real = tcli.viewer.write_html
+
+    def spy(cfg, log, path, *a):
+        seen.append(log)
+        return real(cfg, log, path, *a)
+    monkeypatch.setattr(tcli.viewer, "write_html", spy)
+    out = str(tmp_path / "v.html")
+    res = tcli.main(argv + ["--viewer", out, "--device", "cpu"])
+    assert res["viewer"] == out and len(seen) == 1
+    log = seen[0]
+    steps = int(argv[argv.index("--steps") + 1])
+    assert log.gc.shape == (steps, 19) and isinstance(log.gc, np.ndarray)
+    got = viewer_data(out)
+    jpath = str(tmp_path / "jax.html")
+    jviewer.write_html(jconfig.test_default(), SimpleNamespace(
+        gc=log.gc, gv=log.gv, reward=log.reward), jpath)
+    want = viewer_data(jpath)
+    assert len(got["body"]) == len(want["body"]) == -(-steps // 5)   # stride 5
+    for key in ("body", "legs", "contact", "cmd", "v", "rew"):
+        np.testing.assert_allclose(np.asarray(got[key], float), np.asarray(want[key], float),
+                                   atol=2e-4, err_msg=key)
+    return got
+
+
+def test_cli_mpc_raises_for_what_is_not_ported(tmp_path, monkeypatch):
+    # --viewer runs: the SRB loop's last command as the JAX CLI writes it
+    cli_viewer_matches_jax(["--vx", "1", "--steps", "6"], tmp_path, monkeypatch)
+    # without CUDA the card's default refuses, naming the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcli.main(["--vx", "1", "--steps", "1"])

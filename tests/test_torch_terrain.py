@@ -346,8 +346,14 @@ def test_env_init_keeps_offsets_in_the_jax_range():
         assert (np.abs(off - center) > 0.8 * lim).any(axis=0).all()   # spread over the range
     np.testing.assert_array_equal(s.terrain.cell.numpy(), np.full(B, CELL))
     np.testing.assert_array_equal(s.terrain.z_scale.numpy(), np.full(B, np.float32(0.1)))
-    with pytest.raises(NotImplementedError, match="analytic fractal"):
-        tbp.env_init(tcfg.replace(terrain_sampled=False), 1, torch.Generator(), "cpu")
+    # the analytic fractal draws seeds in JAX's range, [0, 1000) (JAX terrain.py:37-39)
+    a = tbp.env_init(tcfg.replace(terrain_sampled=False), B, torch.Generator().manual_seed(0),
+                     "cpu")
+    js = np.asarray(jax.vmap(lambda k: jtr.fractal(k, 0.1).seed)(
+        jax.random.split(jax.random.PRNGKey(0), B)))
+    for seed in (a.terrain.seed.numpy(), js):
+        assert seed.min() >= 0.0 and seed.max() < 1000.0 and seed.max() - seed.min() > 900.0
+    np.testing.assert_array_equal(a.terrain.z_scale.numpy(), np.full(B, np.float32(0.1)))
 
 
 # --- the evaluation slice -------------------------------------------------------------

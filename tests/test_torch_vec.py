@@ -4,21 +4,27 @@ The port's ``NumpyVecEnv`` is held against the JAX package's from the same
 states (JAX's carried over) and actions, under the deployment config with
 hard contact and the meteorite attacks, where no random draw reaches the
 result: observations, rewards, dones, the info dicts with their episode
-bookkeeping, every getter, and ``set_contact_coefficient``. Then the parts
-that run without JAX: seeding, resets, commands, and what is refused.
+bookkeeping, every getter, and ``set_contact_coefficient``. Then seeding,
+resets, commands, what is refused, a RefTraj table in both packages' VecEnv,
+and the recorded video against the GIF JAX's writer makes of the same frames.
 """
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from high_speed_quadrupedal_locomotion_by_irrl_torch import config as tconfig
 from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import blackpanther as tbp
 from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import vec as tvec
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as tmdl
 from high_speed_quadrupedal_locomotion_by_irrl_tpu import config as jconfig
+from high_speed_quadrupedal_locomotion_by_irrl_tpu.analysis import figures as jfigures
+from high_speed_quadrupedal_locomotion_by_irrl_tpu.envs import reftraj as jreftraj
 from high_speed_quadrupedal_locomotion_by_irrl_tpu.envs import vec as jvec
 
 torch.set_num_threads(1)
@@ -113,7 +119,7 @@ def test_set_contact_coefficient_matches_jax():
                                        err_msg=f"{coeff} {name}")
 
 
-def test_seed_reset_command_and_what_is_refused():
+def test_seed_reset_command_and_what_is_refused(tmp_path):
     cfg = tconfig.train_default().replace(num_envs=B)
     env = tvec.NumpyVecEnv(cfg, seed=5, device="cpu")
     first = env.origin_state()
@@ -125,14 +131,34 @@ def test_seed_reset_command_and_what_is_refused():
     np.testing.assert_array_equal(env.state.command_filtered.numpy(), [[2.0, 0.0, 0.5]] * B)
     with pytest.raises(ValueError, match="Flag_Crutial"):
         env.get_sphere_info()
-    with pytest.raises(NotImplementedError, match="RefTraj"):
-        tvec.VecEnv(cfg, ref_table=np.zeros((10, 30)), device="cpu")
-    env.start_recording_video("v.gif")
+    # a RefTraj table: both packages' VecEnv put every env's references on its rows
+    table = np.asarray(jreftraj.synthesize(
+        jconfig.train_default().replace(manual_traj=False), np.array([[1.0, 0.0, 0.0]]), 800))
+    for mod, venv_cls in ((tconfig, lambda c: tvec.VecEnv(c, ref_table=table, device="cpu")),
+                          (jconfig, lambda c: jvec.VecEnv(c, ref_table=table))):
+        venv = venv_cls(mod.train_default().replace(num_envs=B, manual_traj=False))
+        st = venv.init(3)
+        st = venv.step(st, np.zeros((B, 12), np.float32) if mod is jconfig
+                       else torch.zeros(B, 12)).state
+        frame = np.asarray(st.frame_idx) - 1
+        np.testing.assert_array_equal(np.asarray(st.joint_ref), table[frame, 0:12])
+        np.testing.assert_array_equal(np.asarray(st.command_filtered), table[frame, 27:30])
+    env.start_recording_video(str(tmp_path / "none.gif"))
     env.stop_recording_video()               # no frame recorded: nothing to render
-    env.start_recording_video("v.gif")
-    env.step(np.zeros((B, 12), np.float32))
-    with pytest.raises(NotImplementedError, match="analysis/figures"):
-        env.stop_recording_video()
+    assert not (tmp_path / "none.gif").exists()
+    # recorded frames render to a GIF as JAX's adapter renders them (figures.rollout_animation)
+    gif = tmp_path / "v.gif"
+    env.start_recording_video(str(gif))
+    gcs = []
+    for _ in range(12):
+        env.step(np.zeros((B, 12), np.float32))
+        gcs.append(env.state.gc[0].numpy().copy())
+    env.stop_recording_video()
+    want = tmp_path / "jax.gif"
+    jfigures.rollout_animation(SimpleNamespace(gc=np.stack(gcs)), str(want))
+    with Image.open(gif) as got_img, Image.open(want) as want_img:
+        assert got_img.n_frames == want_img.n_frames == 2     # stride 10 over 12 frames
+    assert abs(gif.stat().st_size - want.stat().st_size) < 0.05 * want.stat().st_size
     venv = tvec.VecEnv(cfg, device="cpu")
     s = venv.init(7)
     out = venv.step(s, torch.zeros(B, 12))

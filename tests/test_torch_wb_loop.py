@@ -335,9 +335,11 @@ def test_cli_mpc_wb_with_dump_info(refs, tmp_path, capsys):
                                atol=GC_ATOL)
 
 
-def test_cli_mpc_wb_viewer_raises():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tcli.main(["--engine", "wb", "--viewer", os.devnull, "--device", "cpu"])
+def test_cli_mpc_wb_viewer_raises(tmp_path, monkeypatch):
+    """``--engine wb --viewer`` writes the whole-body rollout as JAX's viewer
+    does (the helper of test_torch_mpc.py)."""
+    from test_torch_mpc import cli_viewer_matches_jax
+    cli_viewer_matches_jax(["--engine", "wb", "--steps", "2"], tmp_path, monkeypatch)
 
 
 def test_wb_entry_points_run_on_the_card_unless_asked(monkeypatch):
