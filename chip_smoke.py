@@ -23,7 +23,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. serving path: the port's ``cli.test --eval`` at commands 1-5 for 2000
    control steps, with the kernels' launch counts checked (1 physics and 2
    LSTM launches a control step), no falls, and each command's mean speed
-   within 0.1 m/s of the JAX package's;
+   within 0.1 m/s of the JAX package's; then the policy heads through
+   ``lstm.row_product`` (the training rollout's) against ``torch.matmul``
+   (serving's) at 5, 24, 1024 and 4096 rows, wall a call recorded;
 5. full width: a 1024-env closed-loop rollout for 200 control steps, commands
    spread over 0-5 m/s, with env-steps/s, each kernel's share of device time,
    the fall count, and the PyTorch ops the host dispatches a control step,
@@ -99,11 +101,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    same loop stepping JAX's lanes physics (bases over 15 steps, speed,
    falls); (c) ``analysis.parity.mpc_vs_bp5`` at cmd 1 (through both
    kernels), its solve from JAX's start held to JAX's cost and mae /
-   torque_mae to JAX's; (d) a 25-step ``terrain_model=True`` loop on the
+   torque_mae to JAX's; (d) a 15-step ``terrain_model=True`` loop on the
    sampled heightmap, finite and upright. Phases 14, 15, 10-12, 16a, 16d and
    17c run in that order in a second process (``--side-worker``) alongside
    phases 7, 8, 16b, 16c, 9, 13, 17a and 17b, whose loops, like theirs, are host-bound on one
-   Python thread with the card mostly idle;
+   Python thread with the card mostly idle (phase 18's rank processes run
+   beside 13, 17a and 17b);
 15. the per-env control step (``envs.blackpanther.step``: the dense per-env
    physics in plain PyTorch, no physics launch, asserted; ``--perenv-worker
    PATH`` runs this phase alone): (a) the flagship at cmd 1-5
@@ -127,7 +130,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    physics launch a step, asserted), the per-row kernel against its plain
    twin over the first 50 steps, the 15 blends of step 0.25 against JAX's
    (alive_len, accumulated terms), ms a step, busy share, peak memory;
-   (b) ``--kappa-entropy`` at cmd 1, 3, 5 with 4096 episodes for 500 steps;
+   (b) ``--kappa-entropy`` at cmd 1, 3, 5 with 4096 episodes for 100 steps;
    (c) ``--kappa`` at cmd 1-5, kick 1 m/s, 1500 steps as one batch, κ held to
    JAX's recovery_sweep; (d) one ``cli.test`` call with ``--torque --wc --ss
    --corr --delay 0,1,2,5 --save-energy-data --dump-info --viewer`` at vx 2,
@@ -152,6 +155,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    training run dir (the dashboard and the GIF are matplotlib figures: on a
    machine without it, their skip is checked and recorded). Phase 3 holds the analytic instantiation to its plain loop for one control
    step, times it beside the flat step and reads its ptxas report.
+18. multi-GPU training and the sharded solves over ``torch.distributed``
+   (``--phase18-worker PATH`` runs phases 2, 3 and 18 alone, with phase 7's
+   first update redone as its reference), in the main process after phase 17b;
+   each rank is a process of its own (``--phase18-rank SPEC``) that runs the
+   entry point in-process and writes its launches, metrics, the bits of its
+   rollout and its parameters: (a) ``cli.train --distributed`` with phase 7's
+   arguments for one update at world 1 over NCCL, under
+   ``torch.distributed.run --standalone``: the backend, the four kernels'
+   launches of one update of phase 7, every metric finite, metrics and
+   parameters within 2e-4 of phase 7's first update; (b) the same at world 2
+   on the one card over gloo (NCCL refuses two ranks on one device; each rank
+   ``LOCAL_RANK=0``, 512 envs): the ranks' parameters bit for bit alike,
+   metrics and parameters within 2e-4 of (a)'s, each rank's launches those of
+   (a), whether each rank's rollout is bit for bit its block of (a)'s (and
+   where it parts, if it does), and each rank's seconds by rollout, GAE,
+   epochs and collectives (two ranks on one card measure no scaling); (c)
+   ``make_distributed_srb`` at phase 8's 8192 x h50 in both runs and
+   ``make_distributed_mpc`` at 64 problems x h16 x 2 iterations at world 2,
+   each against the unsharded solve: costs within 1e-5 relative; the SRB's
+   plans within 1e-5 and forces within 1e-5 of the largest; the whole-body
+   plans and states within 1e-4 (a problem's bits on the card depend on the
+   batch's width).
 
 Phase 3 also holds the control step with its Convert2Torque inputs (a torque
 feedforward and a PD scale) against its plain loop, at the closed loop's
@@ -168,8 +193,8 @@ bench-shape lanes solve's launches at each of its lane widths (64; the line
 search's 512; the FD sweep's 6272), with the same non-finite lanes on both
 sides, timed at 512 and 6272.
 
-The last lines are the kernels' JSON record, the nvidia-smi line and
-``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
+The last lines are the kernels' JSON record (``launches_distributed``: phase
+18a's), the nvidia-smi line and ``{"ok": true, "device": {...}}``. ``--out PATH`` also writes every
 measurement to a JSON file. Needs no JAX and imports nothing of the JAX
 package.
 """
@@ -184,6 +209,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -210,6 +236,8 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import (
     _build, lstm_cuda, pd_torque, phys_cuda,
 )
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as lanes
+from high_speed_quadrupedal_locomotion_by_irrl_torch.parallel import mesh as pmesh
+from high_speed_quadrupedal_locomotion_by_irrl_torch.parallel import train as ptrain
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import dynamics as dyn
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import hard_contact
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
@@ -759,8 +787,9 @@ JAX_MPC_VS_BP5_SPREAD = {"mae": 0.045736998319625854, "torque_mae": 0.0946277678
 MPC_VS_BP5_ATOL = 5e-3
 # (d) a short terrain_model=True loop at wb_speed_schedule(cmd 1) on the sampled heightmap
 # (z_scale 0.05) at JAX's map offset (env_init(cfg, PRNGKey(0))): finite and upright (base
-# height within 0.2-0.5 m, no fall); its bases against the JAX lanes loop's are recorded
-WB_TERRAIN_STEPS, WB_TERRAIN_Z = 25, 0.05
+# height within 0.2-0.5 m, no fall); its bases against the JAX lanes loop's are recorded.
+# 15 steps (25 before phase 18 came): the time limit
+WB_TERRAIN_STEPS, WB_TERRAIN_Z = 15, 0.05
 JAX_WB_TERRAIN = {"offset": [52.9175262, 5.82514], "falls": 0, "bases": [[1.26778523e-05,
                   -1.75386923e-08, 0.320445597], [3.82015169e-05, -3.60429766e-08, 0.320357114],
                   [6.85919949e-05, -4.95923658e-08, 0.32022047], [0.000102742248, -7.4558379e-08,
@@ -941,8 +970,9 @@ LANDSCAPE_STEP, LANDSCAPE_CHECK_STEP, LANDSCAPE_STEPS, LANDSCAPE_VX = 0.01, 0.25
 LANDSCAPE_TWIN_STEPS, LANDSCAPE_TWIN_ATOL = 50, 1e-4
 LANDSCAPE_RTOL, LANDSCAPE_ATOL = 2e-3, 1e-3
 LANDSCAPE_PROF_STEPS = 10
-# (b) --kappa-entropy at cmd 1, 3, 5, 4096 episodes, 500 steps (recorded)
-ENTROPY_COMMANDS, ENTROPY_EPISODES, ENTROPY_STEPS = "1,3,5", 4096, 500
+# (b) --kappa-entropy at cmd 1, 3, 5, 4096 episodes (recorded)
+# 100 steps (500 before phase 18 came): the time limit
+ENTROPY_COMMANDS, ENTROPY_EPISODES, ENTROPY_STEPS = "1,3,5", 4096, 100
 # (c) --kappa at cmd 1-5, kick 1 m/s, 1500 steps (the five rows one batch): kappa within
 # max(KAPPA_TOL, 2 x JAX's nudge spread) of JAX's recovery_sweep on the CPU
 # (`tests/test_torch_robustness.py kappa`), survival equal
@@ -1038,6 +1068,39 @@ CLOSURES_OUT_DIR = os.path.join(ROOT, "runs", "chip_smoke_closures")
 # the host-side figures (the training dashboard, the recorded video) need matplotlib, which not
 # every machine with the card has; where it is absent the checks record that they were skipped
 HAS_MATPLOTLIB = importlib.util.find_spec("matplotlib") is not None
+
+# phase 4: the policy heads (lstm.row_product against torch.matmul) timed at the widths of
+# serving (5 commands), the terrain evaluation (24), full width (1024) and entropy kappa (4096)
+HEADS_WIDTHS, HEADS_REPS = (5, 24, 1024, 4096), 500
+
+# phase 18: multi-GPU training and the sharded solves over torch.distributed, on the one card.
+# The limits of (a), (b) and the costs and SRB plans of (c) were fixed before the phase's first
+# run on the H100; (c)'s others after it, as said there. (a) world 1 over NCCL
+# through torch.distributed.run and (b) world 2 over gloo (NCCL refuses two ranks on one
+# device), each cli.train --distributed with phase 7's arguments for one update, held to phase
+# 7's first update and to each other: every metric within DIST_RTOL relative (DIST_ATOL
+# absolute) and every parameter within DIST_RTOL of its leaf's largest entry: JAX's sharded
+# against local limit (tests/test_parallel.py:33); the CPU tests' spread of world 2 against
+# world 1 is 2.5e-5 relative on the metrics (1.2e-7 absolute on explained_variance) and
+# 2.5e-7 of a leaf's largest entry on the parameters (tests/test_torch_distributed.py)
+DIST_RTOL, DIST_ATOL = 2e-4, 1e-7
+DIST_TIMEOUT_S = 400
+# the rollouts' bits compared over blocks of this many envs (the ranks' blocks at world 2)
+DIST_BLOCK = FULL_B // 2
+# (c) make_distributed_srb at phase 8's problems (world 1 and 2) and make_distributed_mpc at
+# DIST_MPC_B problems of phase 13's commands with the fleet's MPC (horizon 16, 2 iterations;
+# world 2), against the unsharded solve in the same process: costs within 1e-5 relative
+# (tests/test_parallel.py:59-62); the SRB's plans (us) within 1e-5 (the same test) and its
+# forces within 1e-5 of their largest entry; the whole-body plans and positions (gc) within
+# WB_FLEET_ATOL, the limit of the JAX package's test of a problem in a batch against the same
+# problem alone (test_wb_mpc_fleet_batch_matches_single on gc, phase 14a). On the card a
+# problem's bits depend on the batch's width: cuBLAS picks its kernels by the batch count (the
+# dense model's products in the whole-body linearizer; past 65535 batched products, the SRB
+# solve's last chunk), so 1e-5 N on the SRB forces, 1e-5 on the whole-body plans and
+# WB_FLEET_ATOL on its velocities all fail on the H100 (PERF.md section 6).
+DIST_SOLVE_RTOL, DIST_SOLVE_ATOL = 1e-5, 1e-5
+DIST_MPC_B = 64
+DIST_LOG_DIR = os.path.join(ROOT, "runs", "chip_smoke_dist")
 
 
 def log(msg: str) -> None:
@@ -1537,20 +1600,24 @@ def _check_phys_terrain(rec: dict) -> None:
         f"samples, {t_ops} ops needed)")
 
 
+def wb_problems(cfg, batch: int, horizon: int, device=DEVICE) -> trot.TrotProblem:
+    """bench.py's whole-body problems: from the stand at rest, commands 1-4 m/s
+    over 5 values."""
+    i = np.arange(batch)
+    cmds = torch.tensor(np.stack([1.0 + 3.0 * (i % 5) / 4.0, 0.0 * i, 0.0 * i], -1),
+                        dtype=torch.float32, device=device)
+    x0 = trot.standing_x0(cfg, device)
+    return trot.make_problem(cfg, x0[:19].expand(batch, 19), torch.zeros(batch, 18, device=device),
+                             cmds, torch.zeros(batch, device=device), horizon)
+
+
 def wb_setup(linearizer: str, n_iter: int = WB_ITERS):
     """bench.py's whole-body problem set on the card: (cfg, MPCConfig, nominal
     params, TrotProblem of WB_BATCH problems)."""
     cfg = config.test_default().replace(obs_noise=0.0)
     mc = trot.MPCConfig(horizon=WB_HORIZON, n_iter=n_iter, model_substeps=2, linearize_chunk=1,
                         linearizer=linearizer)
-    i = np.arange(WB_BATCH)
-    cmds = torch.tensor(np.stack([1.0 + 3.0 * (i % 5) / 4.0, 0.0 * i, 0.0 * i], -1),
-                        dtype=torch.float32, device=DEVICE)
-    x0 = trot.standing_x0(cfg, DEVICE)
-    probs = trot.make_problem(cfg, x0[:19].expand(WB_BATCH, 19),
-                              torch.zeros(WB_BATCH, 18, device=DEVICE), cmds,
-                              torch.zeros(WB_BATCH, device=DEVICE), WB_HORIZON)
-    return cfg, mc, mdl.nominal_params(cfg, device=DEVICE), probs
+    return cfg, mc, mdl.nominal_params(cfg, device=DEVICE), wb_problems(cfg, WB_BATCH, WB_HORIZON)
 
 
 class _SubstepInputs:
@@ -2094,7 +2161,8 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     """Every wrapper's launch count, by the kernel's name in the `kernels` line."""
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return {"phys_substep": phys_cuda.launches, "phys_analytic": phys_cuda.analytic_launches,
             "lstm_cell": lstm_cuda.launches,
             "lstm_cell_train": lstm_cuda.train_launches, "lstm_cell_bwd": lstm_cuda.bwd_launches,
@@ -2140,7 +2208,45 @@ def phase_serving() -> dict:
         f"(model load included): {env_steps / wall:.0f} env-steps/s, "
         f"{wall / EVAL_STEPS * 1e3:.3f} ms a control step")
     return {"rows": rows, "wall_s": wall, "env_steps_per_s": env_steps / wall,
-            "launches": counts}
+            "launches": counts, "heads": heads_timing()}
+
+
+def _sync(device) -> float:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def heads_timing() -> dict:
+    """The policy heads of ``models/lstm.forward`` (2 x LSTM(48) -> 12 actions
+    and 1 value) through ``lstm.row_product``, whose rows keep their bits at
+    any batch width, against ``torch.matmul``, at the serving widths
+    HEADS_WIDTHS: microseconds of wall a call of both heads, back to back
+    with the card synchronized once after HEADS_REPS calls (what a
+    host-bound loop pays), and the largest difference of the outputs."""
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=DEVICE)  # noqa: E731
+    pi_w, pi_b, vf_w, vf_b = rand(48, 12), rand(12), rand(48, 1), rand(1)
+    out = {}
+    for b in HEADS_WIDTHS:
+        pi_lat, v_lat = torch.tanh(rand(b, 48)), torch.tanh(rand(b, 48))
+        rec = {}
+        for name, product in (("matmul", torch.matmul), ("row_product", lstm.row_product)):
+            def heads():
+                return (product(pi_lat, pi_w) + pi_b, (product(v_lat, vf_w) + vf_b)[..., 0])
+            for _ in range(20):
+                heads()
+            t0 = _sync(DEVICE)
+            for _ in range(HEADS_REPS):
+                heads()
+            rec[f"{name}_us"] = (_sync(DEVICE) - t0) / HEADS_REPS * 1e6
+            rec[f"{name}_out"] = heads()
+        (m_pi, m_v), (r_pi, r_v) = rec.pop("matmul_out"), rec.pop("row_product_out")
+        rec["max_abs_diff"] = max(float((m_pi - r_pi).abs().max()), float((m_v - r_v).abs().max()))
+        out[b] = rec
+        log(f"[4] policy heads at B={b}: row_product {rec['row_product_us']:.1f} us a call, "
+            f"matmul {rec['matmul_us']:.1f} us; outputs within {rec['max_abs_diff']:.3g}")
+    return out
 
 
 def _kernel_device_ms(prof) -> dict:
@@ -2327,10 +2433,15 @@ def phase_bptt() -> dict:
             "kernel_s": kernel_s, "plain_s": plain_s}
 
 
+def train_argv(updates: int, log_dir: str) -> list:
+    """cli.train's arguments of phase 7: the flagship relaxed at 1024 envs."""
+    return ["--cfg", TRAIN_CFG, "--load", ARTIFACT, "--lr", "5e-4", "--num-envs", str(FULL_B),
+            "--max-updates", str(updates), "--log-dir", log_dir, "--device", DEVICE]
+
+
 def phase_training() -> dict:
     """cli.train at 1024 envs x 750 steps x 10 epochs, then an update's parts."""
-    argv = ["--cfg", TRAIN_CFG, "--load", ARTIFACT, "--lr", "5e-4", "--num-envs", str(FULL_B),
-            "--max-updates", str(TRAIN_UPDATES), "--log-dir", TRAIN_LOG_DIR, "--device", DEVICE]
+    argv = train_argv(TRAIN_UPDATES, TRAIN_LOG_DIR)
     env_cfg = config.from_yaml(TRAIN_CFG).replace(num_envs=FULL_B, use_lanes_physics=True)
     if env_cfg.episode_len != TRAIN_STEPS or ppo.PPOConfig().noptepochs != TRAIN_EPOCHS:
         raise RuntimeError("the training shape is not the production one")
@@ -2469,16 +2580,22 @@ def riccati_flops(nx: int = srb.NX, nu: int = srb.NU) -> int:
     return products + chol + sums + forward
 
 
+def srb_bench_problems(cfg, batch: int = SRB_BATCH, device=DEVICE) -> srb.SRBProblem:
+    """bench.py's problems: commands 1-5 m/s over 17 values, gait clocks 3 ms
+    apart."""
+    i = np.arange(batch)
+    cmds = np.stack([1.0 + 4.0 * (i % 17) / 16.0, 0.0 * i, 0.0 * i], -1).astype(np.float32)
+    t0s = i.astype(np.float32) * np.float32(0.003)
+    return srb.standing_problem(cfg, torch.tensor(cmds, device=device),
+                                torch.tensor(t0s, device=device))
+
+
 def phase_batched_solve() -> dict:
     """srb.batched_solve at the JAX package's bench shape against its CPU
     results, then its rate, host ops, busy share, memory and bound."""
     cfg = config.test_default()
     scfg = srb.SRBConfig(horizon=SRB_HORIZON)
-    i = np.arange(SRB_BATCH)
-    cmds = np.stack([1.0 + 4.0 * (i % 17) / 16.0, 0.0 * i, 0.0 * i], -1).astype(np.float32)
-    t0s = i.astype(np.float32) * np.float32(0.003)
-    probs = srb.standing_problem(cfg, torch.tensor(cmds, device=DEVICE),
-                                 torch.tensor(t0s, device=DEVICE))
+    probs = srb_bench_problems(cfg)
     run = lambda: srb.batched_solve(cfg, scfg, probs)  # noqa: E731
     reset_counts()
     torch.cuda.synchronize()
@@ -3298,7 +3415,7 @@ def phase_wb_terrain() -> dict:
     counts = read_counts()
     check_counts(counts, physics_only_counts(WB_TERRAIN_STEPS), "14d")
     gc = logr.gc.cpu().numpy()
-    d = np.abs(gc[:, :3] - np.asarray(JAX_WB_TERRAIN["bases"])).max(axis=1)
+    d = np.abs(gc[:, :3] - np.asarray(JAX_WB_TERRAIN["bases"])[:WB_TERRAIN_STEPS]).max(axis=1)
     upright = bool(np.isfinite(gc).all() and torch.isfinite(logr.solve_cost).all()
                    and (gc[:, 2] > 0.2).all() and (gc[:, 2] < 0.5).all()
                    and not logr.done.any())
@@ -4063,6 +4180,333 @@ def phase_closures() -> dict:
     out["video"]["wall_s"] = time.perf_counter() - t0
     return out
 
+# --- phase 18 -----------------------------------------------------------------
+
+def _rollout_bits(batch: ppo.Batch, block: int) -> list:
+    """(T, blocks, 5): for each control step and block of ``block`` envs, the
+    exact integer sum of the bits of the rollout's obs, actions, values,
+    neglogpacs and rewards."""
+    cols = []
+    for x in (batch.obs, batch.actions, batch.values, batch.neglogpacs, batch.rewards):
+        T, B = x.shape[:2]
+        bits = x.contiguous().view(torch.int32).to(torch.int64)
+        cols.append(bits.reshape(T, B // block, -1).sum(-1))
+    return torch.stack(cols, -1).cpu().tolist()
+
+
+def _dist_solve(mesh, sharded, single, trajectory: str) -> dict:
+    """A sharded solve against the unsharded one in this process: the worst
+    relative cost error, the worst absolute error of the plan (``us``) and
+    the worst error of ``trajectory`` relative to its largest entry, which
+    problems differ at all, and the times (from a collective that lines the
+    ranks up)."""
+    device = mesh.device
+    pmesh.all_reduce_sum(mesh, torch.zeros(1, device=device))
+    t0 = _sync(device)
+    got = sharded()
+    t1 = _sync(device)
+    want = single()
+    t2 = _sync(device)
+    for k, v in want._asdict().items():
+        if v is not None and not (got._asdict()[k].shape == v.shape and
+                                  bool(torch.isfinite(got._asdict()[k]).all())):
+            raise RuntimeError(f"sharded solve: {k} of shape {tuple(got._asdict()[k].shape)}, "
+                               f"want {tuple(v.shape)}, or not finite")
+    n = int(want.cost.shape[0])
+    differ = torch.zeros(n, dtype=torch.bool, device=device)
+    for k in ("cost", "us", trajectory):
+        differ |= (getattr(got, k) != getattr(want, k)).reshape(n, -1).any(1)
+    rows = differ.nonzero()[:, 0].tolist()
+    traj_got, traj_want = getattr(got, trajectory), getattr(want, trajectory)
+    extra = {} if trajectory != "xs" else {   # the positions, which JAX's fleet test holds
+        "gc_abs": float((traj_got[..., :19] - traj_want[..., :19]).abs().max())}
+    return {**extra, "problems": n, "ms": (t1 - t0) * 1e3, "single_ms": (t2 - t1) * 1e3,
+            "cost_rel": float(((got.cost - want.cost).abs() / want.cost.abs()).max()),
+            "plan_abs": float((got.us - want.us).abs().max()), "trajectory": trajectory,
+            "trajectory_abs": float((traj_got - traj_want).abs().max()),
+            "trajectory_rel": float((traj_got - traj_want).abs().max() / traj_want.abs().max()),
+            "problems_differing": len(rows), "differing_range": rows[:1] + rows[-1:]}
+
+
+def phase18_rank(spec_path: str) -> int:
+    """One rank of phase 18 (``--phase18-rank SPEC``; the launcher's
+    environment names the rank): ``cli.train`` with the spec's arguments
+    (``--distributed``) in this process, its launches counted around it and
+    each update's metrics, the rollout's bits and the final parameters kept;
+    then the sharded SRB solve and, at world 2, the sharded whole-body solve,
+    each against the unsharded solve here. Writes SPEC.rank<r>.json / .npz."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    argv = spec["train_args"]
+    device = argv[argv.index("--device") + 1]
+    pmesh.init_distributed(device=device, backend=spec["backend"])
+    mesh = pmesh.make_mesh(device)
+    updates, bits, last = [], [], {}
+    make, rollout = ppo.make_update_fn, ppo.rollout
+
+    def kept_update(*a, **k):
+        update = make(*a, **k)
+
+        def run(ts):
+            ts, metrics = update(ts)
+            updates.append({k: float(v) for k, v in metrics.items()})
+            last["params"] = ts.params
+            return ts, metrics
+        return run
+
+    def kept_rollout(*a, **k):
+        out = rollout(*a, **k)
+        bits.append(_rollout_bits(out[1], spec["block"]))
+        return out
+    ppo.make_update_fn, ppo.rollout = kept_update, kept_rollout
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        cli_train.main(argv)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        ppo.make_update_fn, ppo.rollout = make, rollout
+    rec = {"rank": mesh.rank, "world": mesh.world, "backend": mesh.backend, "wall_s": wall,
+           "launches": counts, "updates": updates, "rollout_bits": bits,
+           "checksum": pmesh.checksum(last["params"].leaves())}
+    dev = mesh.device
+    cfg = config.test_default()
+    scfg = srb.SRBConfig(horizon=spec["srb"][1])
+    probs = srb_bench_problems(cfg, spec["srb"][0], dev)
+    rec["srb"] = _dist_solve(mesh, lambda: ptrain.make_distributed_srb(cfg, scfg, mesh)(probs),
+                             lambda: srb.batched_solve(cfg, scfg, probs), "forces")
+    if mesh.world > 1:
+        wcfg = config.test_default().replace(obs_noise=0.0)
+        mc = trot.MPCConfig(**spec["mpc"][1])
+        wprobs = wb_problems(wcfg, spec["mpc"][0], mc.horizon, dev)
+        robot = mdl.nominal_params(wcfg, device=dev)
+        rec["mpc"] = _dist_solve(
+            mesh, lambda: ptrain.make_distributed_mpc(wcfg, mc, mesh)(robot, wprobs),
+            lambda: trot.batched_solve(wcfg, mc, robot, wprobs), "xs")
+    pmesh.shutdown()
+    out = f"{spec_path}.rank{mesh.rank}"
+    np.savez(out + ".npz", **mio.policy_params_to_numpy(last["params"]))
+    with open(out + ".json", "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(tag: str, spec: dict, world: int, live: list) -> list:
+    """Phase 18's ranks of ``spec``: at world 1 one process under
+    ``torch.distributed.run --standalone``; else ``world`` processes with the
+    launcher's variables set by hand, each with ``LOCAL_RANK=0`` (one card).
+    Returns each rank's (record, parameters); raises, with the end of its
+    log, if a rank fails or outlives DIST_TIMEOUT_S. The processes are added
+    to ``live`` while they run."""
+    os.makedirs(DIST_LOG_DIR, exist_ok=True)
+    spec_path = os.path.join(DIST_LOG_DIR, f"{tag}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    me = os.path.abspath(__file__)
+    if world == 1:
+        cmds = [[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", "1", me, "--phase18-rank", spec_path]]
+        envs = [dict(os.environ)]
+    else:
+        port = _free_port()
+        cmds = [[sys.executable, me, "--phase18-rank", spec_path]] * world
+        envs = [{**os.environ, "RANK": str(r), "WORLD_SIZE": str(world), "LOCAL_RANK": "0",
+                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)} for r in range(world)]
+    logs = [os.path.join(DIST_LOG_DIR, f"{tag}.{r}.log") for r in range(len(cmds))]
+    procs = []
+    for c, e, path in zip(cmds, envs, logs):
+        with open(path, "w") as out:
+            procs.append(subprocess.Popen(c, env=e, stdout=out, stderr=subprocess.STDOUT,
+                                          start_new_session=True))
+    live.extend(procs)
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+    for path, p in zip(logs, procs):
+        if p.returncode != 0:
+            with open(path) as f:
+                tail = f.read()[-3000:]
+            raise RuntimeError(f"phase 18 ({tag}): {os.path.basename(path)} exited {p.returncode} "
+                               f"(a timeout kills at {DIST_TIMEOUT_S} s):\n{tail}")
+    out = []
+    for r in range(world):
+        with open(f"{spec_path}.rank{r}.json") as f:
+            out.append((json.load(f), dict(np.load(f"{spec_path}.rank{r}.npz"))))
+    return out
+
+
+def first_update_of(run_dir: str) -> tuple[dict, dict]:
+    """A cli.train run's first metrics.jsonl row and the parameters of its
+    checkpoint after that update (ckpt_1.pkl)."""
+    rows = metrics_io.read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    params, _, step = mio.load_checkpoint(os.path.join(run_dir, "ckpt_1.pkl"), "cpu")
+    if step != 1:
+        raise RuntimeError(f"{run_dir}/ckpt_1.pkl holds update {step}")
+    return rows[0], mio.policy_params_to_numpy(params)
+
+
+def _held_metrics(got: dict, want: dict, what: str) -> float:
+    """Every metric of ``want`` but times and counters within DIST_ATOL +
+    DIST_RTOL relative; returns the worst relative error."""
+    worst = 0.0
+    for k, w in want.items():
+        if k.startswith("time_") or k in ("fps", "timesteps", "lr"):
+            continue
+        g = got[k]
+        if not (np.isfinite(g) and abs(g - w) <= DIST_ATOL + DIST_RTOL * abs(w)):
+            raise RuntimeError(f"{what}: {k} {g} against {w} (limit {DIST_RTOL:g} relative)")
+        worst = max(worst, abs(g - w) / max(abs(w), 1e-30))
+    return worst
+
+
+def _held_params(got: dict, want: dict, what: str) -> float:
+    """Every leaf within DIST_RTOL of its largest entry; returns the worst."""
+    worst = 0.0
+    for k, w in want.items():
+        err = float(np.abs(got[k] - w).max()) / float(np.abs(w).max())
+        if not err <= DIST_RTOL:
+            raise RuntimeError(f"{what}: parameter {k} off by {err:.3g} of its largest entry "
+                               f"(limit {DIST_RTOL:g})")
+        worst = max(worst, err)
+    return worst
+
+
+def _held_solve(r: dict, what: str, whole_body: bool) -> None:
+    """The SRB solve: costs, plans and forces (relative to the largest) at
+    DIST_SOLVE_*; the whole-body one: costs at DIST_SOLVE_RTOL, plans and
+    positions (gc) within WB_FLEET_ATOL."""
+    plan_atol = WB_FLEET_ATOL if whole_body else DIST_SOLVE_ATOL
+    traj, traj_limit = (("gc_abs", WB_FLEET_ATOL) if whole_body
+                        else ("trajectory_rel", DIST_SOLVE_RTOL))
+    if not (r["cost_rel"] <= DIST_SOLVE_RTOL and r["plan_abs"] <= plan_atol
+            and r[traj] <= traj_limit):
+        raise RuntimeError(f"{what}: costs within {r['cost_rel']:.3g} relative, plans within "
+                           f"{r['plan_abs']:.3g}, {traj} {r[traj]:.3g} (limits "
+                           f"{DIST_SOLVE_RTOL:g}, {plan_atol:g}, {traj_limit:g})")
+    log(f"[18c] {what}: {r['problems']} problems, {r['ms']:.1f} ms sharded (all-gather included) "
+        f"against {r['single_ms']:.1f} ms in one solve; costs within {r['cost_rel']:.3g} "
+        f"relative, plans (us) within {r['plan_abs']:.3g}, {r['trajectory']} within "
+        f"{r['trajectory_abs']:.3g} ({r['trajectory_rel']:.3g} of its largest entry"
+        + (f"; positions within {r['gc_abs']:.3g}" if whole_body else "") + "); "
+        f"{r['problems_differing']} problems not bit for bit (first and last: "
+        f"{r['differing_range']})")
+
+
+def _first_parted(bits_a: list, bits_b: list, block: int):
+    """The first (step, field) where a rank's rollout bits part from world
+    1's block ``block``; None if none does."""
+    fields = ("obs", "actions", "values", "neglogpacs", "rewards")
+    for t, (a, b) in enumerate(zip(bits_a, bits_b)):
+        for j, name in enumerate(fields):
+            if a[block][j] != b[0][j]:
+                return {"step": t, "field": name}
+    return None
+
+
+def phase_distributed(training: dict, live: list) -> dict:
+    """cli.train --distributed at world 1 over NCCL and at world 2 over gloo
+    on the one card (phase 7's arguments, one update), and the sharded solves;
+    the rank processes go to ``live`` while they run."""
+    want_metrics, want_params = first_update_of(os.path.join(ROOT, training["run_dir"]))
+    spec = {"block": DIST_BLOCK, "srb": [SRB_BATCH, SRB_HORIZON],
+            "mpc": [DIST_MPC_B, WB_FLEET_MC]}
+    argv = lambda world: train_argv(1, os.path.join(DIST_LOG_DIR, f"w{world}")) + [  # noqa: E731
+        "--distributed"]
+    launches = {"phys_substep": PHYS_LAUNCHES_PER_STEP * TRAIN_STEPS,
+                "lstm_cell": LSTM_LAUNCHES_PER_STEP * (TRAIN_STEPS + 1),
+                "lstm_cell_train": 2 * TRAIN_EPOCHS * TRAIN_STEPS,
+                "lstm_cell_bwd": 2 * TRAIN_EPOCHS * TRAIN_STEPS}
+
+    t0 = time.perf_counter()
+    (a, pa), = _run_ranks("a", {**spec, "backend": None, "train_args": argv(1)}, 1, live)
+    wall_a = time.perf_counter() - t0
+    if a["backend"] != pmesh.default_backend(DEVICE) or a["world"] != 1:
+        raise RuntimeError(f"18a: world {a['world']} over {a['backend']}")
+    check_counts(a["launches"], launches, "18a")
+    m_a = a["updates"][0]
+    err_a = {"metrics": _held_metrics(m_a, want_metrics, "18a against phase 7"),
+             "params": _held_params(pa, want_params, "18a against phase 7")}
+    bitwise_a = all(pa[k].tobytes() == want_params[k].tobytes() for k in want_params)
+    log(f"[18a] world 1 over {a['backend']} (torch.distributed.run, {wall_a:.1f} s in all): "
+        f"{m_a['time_rollout_s']:.2f} s rollout + {m_a['time_gae_s']:.3f} s GAE + "
+        f"{m_a['time_epochs_s']:.2f} s epochs ({m_a['time_collectives_s']:.3f} s in collectives); "
+        f"against phase 7's first update: metrics within {err_a['metrics']:.3g} relative, "
+        f"parameters within {err_a['params']:.3g} of each leaf's largest entry (limit "
+        f"{DIST_RTOL:g}; bit for bit {bitwise_a})")
+
+    t0 = time.perf_counter()
+    ranks = _run_ranks("b", {**spec, "backend": "gloo", "train_args": argv(2)}, 2, live)
+    wall_b = time.perf_counter() - t0
+    (b0, p0), (b1, p1) = ranks
+    parted = [_first_parted(a["rollout_bits"][0], b["rollout_bits"][0], r)
+              for r, (b, _) in enumerate(ranks)]
+    log("[18b] each rank's rollout against its block of 18a's: "
+        + ("bit for bit" if not any(parted) else f"parts at {parted}"))
+    if {b0["checksum"]} != {b1["checksum"]} or any(
+            p0[k].tobytes() != p1[k].tobytes() for k in p0):
+        raise RuntimeError("18b: the ranks' parameters differ")
+    strip = lambda m: {k: v for k, v in m.items() if not k.startswith("time_")}  # noqa: E731
+    if strip(b0["updates"][0]) != strip(b1["updates"][0]):
+        raise RuntimeError("18b: the ranks report different metrics")
+    err_b = {"metrics": _held_metrics(b0["updates"][0], m_a, "18b against 18a"),
+             "params": _held_params(p0, pa, "18b against 18a")}
+    per_rank = []
+    for b, _ in ranks:
+        check_counts(b["launches"], launches, f"18b rank {b['rank']}")
+        m = b["updates"][0]
+        per_rank.append({k: m[k] for k in ("time_rollout_s", "time_gae_s", "time_epochs_s",
+                                           "time_collectives_s")})
+        log(f"[18b] rank {b['rank']} of 2 over {b['backend']}, {FULL_B // 2} envs: "
+            f"{m['time_rollout_s']:.2f} s rollout + {m['time_gae_s']:.3f} s GAE + "
+            f"{m['time_epochs_s']:.2f} s epochs, {m['time_collectives_s']:.3f} s of it in "
+            f"collectives (staged through the host)")
+    log(f"[18b] world 2 on one card ({wall_b:.1f} s in all): parameters bit for bit alike on "
+        f"the ranks; against world 1 metrics within {err_b['metrics']:.3g} relative, parameters "
+        f"within {err_b['params']:.3g} (limit {DIST_RTOL:g}); rollout blocks "
+        + ("bit for bit world 1's" if not any(parted) else f"part from world 1's at {parted}")
+        + ". Two ranks on one card share its SMs and the host's cores: this measures no "
+        "scaling, only that W ranks compute what one does and what the collectives cost")
+
+    _held_solve(a["srb"], f"make_distributed_srb at world 1 over {a['backend']}", False)
+    for b, _ in ranks:
+        _held_solve(b["srb"], f"make_distributed_srb rank {b['rank']} of 2", False)
+        _held_solve(b["mpc"], f"make_distributed_mpc rank {b['rank']} of 2", True)
+    return {"launches": a["launches"], "world1": {"wall_s": wall_a, "backend": a["backend"],
+                                                   "metrics": m_a, "err_vs_phase7": err_a,
+                                                   "bitwise_vs_phase7": bitwise_a},
+            "world2": {"wall_s": wall_b, "backend": b0["backend"], "metrics": b0["updates"][0],
+                       "err_vs_world1": err_b, "seconds_by_rank": per_rank,
+                       "rollout_parted": parted, "launches": [b["launches"] for b, _ in ranks]},
+            "srb": {"world1": a["srb"], "world2": [b["srb"] for b, _ in ranks]},
+            "mpc": [b["mpc"] for b, _ in ranks]}
+
+
+def _phase18_alone() -> list:
+    """Phase 18 without the main run: phase 7's first update as its reference."""
+    ref = {}
+
+    def reference():
+        run_dir = cli_train.main(train_argv(1, os.path.join(DIST_LOG_DIR, "reference")))
+        ref["run_dir"] = os.path.relpath(run_dir, ROOT)
+        return ref
+    return [("7 (one update)", reference), ("18", lambda: phase_distributed(ref, []))]
+
 
 def _phase17() -> list:
     return [("17a", phase_reftraj), ("17b", phase_terrain_analytic), ("17c", phase_closures)]
@@ -4110,6 +4554,39 @@ def worker(out_path: str, phases: list) -> int:
     return 0
 
 
+class _Phase18:
+    """Phase 18 (:func:`phase_distributed`) in a thread of this process,
+    started on entry: its ranks are processes of their own, host-bound as
+    phase 13 is, so they run beside it. :meth:`result` waits and raises what
+    the phase raised; leaving kills any rank still running."""
+
+    def __init__(self, training: dict):
+        self.training, self.procs, self.out, self.err = training, [], None, None
+
+    def _body(self):
+        try:
+            self.out = phase_distributed(self.training, self.procs)
+        except BaseException as e:   # handed to the main thread by result()
+            self.err = e
+
+    def __enter__(self):
+        self.thread = threading.Thread(target=self._body, daemon=True)
+        self.thread.start()
+        return self
+
+    def result(self) -> dict:
+        self.thread.join()
+        if self.err is not None:
+            raise self.err
+        return self.out
+
+    def __exit__(self, *exc):
+        for p in self.procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+
+
 class _SideWorker:
     """The second process of :func:`worker` (``--side-worker``, phases 14, 15,
     10-12, 16a, 16d and 17c): started on entry, waited for by :meth:`result`, killed if the
@@ -4148,8 +4625,15 @@ def main(argv=None) -> int:
                     help="run only phases 2, 3 and 16 and write their records to PATH")
     ap.add_argument("--phase17-worker", default=None, metavar="PATH",
                     help="run only phases 2, 3 and 17 and write their records to PATH")
+    ap.add_argument("--phase18-worker", default=None, metavar="PATH",
+                    help="run only phases 2, 3 and 18 (with phase 7's first update as its "
+                    "reference) and write their records to PATH")
+    ap.add_argument("--phase18-rank", default=None, metavar="SPEC",
+                    help="one rank of phase 18 (the phase starts these itself)")
     args = ap.parse_args(argv)
     out_path = args.out
+    if args.phase18_rank:   # a rank runs on the device its spec names
+        return phase18_rank(args.phase18_rank)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke needs a CUDA GPU",
               file=sys.stderr)
@@ -4164,6 +4648,10 @@ def main(argv=None) -> int:
         return worker(args.phase16_worker, [("2", phase_build), ("3", phase_kernels)] + _phase16())
     if args.phase17_worker:
         return worker(args.phase17_worker, [("2", phase_build), ("3", phase_kernels)] + _phase17())
+    if args.phase18_worker:
+        return worker(args.phase18_worker, [("2", phase_build), ("3", phase_kernels)]
+                      + _phase18_alone())
+
     start, seconds = time.perf_counter(), {}
 
     def run(name, fn, *args):
@@ -4181,14 +4669,17 @@ def main(argv=None) -> int:
         "phys_substep": kern["phys_substep"]["ms"],
         "lstm_cell": statistics.mean(p["ms"] for p in kern["lstm_cell"]["per_launch"].values())})
     bptt = run("6", phase_bptt)
-    # phases 14, 15, 10-12, 16a, 16d and 17c beside 7-9, 16b, 16c, 13, 17a and 17b
+    # phases 14, 15, 10-12, 16a, 16d and 17c beside 7-9, 16b, 16c, 13, 17a and 17b; phase
+    # 18's ranks beside 13, 17a and 17b
     with _SideWorker() as side_worker:
         training = run("7", phase_training)
         solve = run("8", phase_batched_solve)
         p16 = {"16b": run("16b", phase_entropy_kappa), "16c": run("16c", phase_kappa)}
         mpc = run("9", phase_mpc)
-        wholebody = run("13", phase_wholebody)
-        p17 = {"17a": run("17a", phase_reftraj), "17b": run("17b", phase_terrain_analytic)}
+        with _Phase18(training) as p18:   # its ranks run beside phase 13
+            wholebody = run("13", phase_wholebody)
+            p17 = {"17a": run("17a", phase_reftraj), "17b": run("17b", phase_terrain_analytic)}
+            distributed = run("18", p18.result)
         side = run("side", side_worker.result)
     terrain_eval, terrain_training, parity_rec = side["10"], side["11"], side["12"]
     wb_fleet, wb_track, wb_parity, wb_terrain = (side[k] for k in ("14a", "14b", "14c", "14d"))
@@ -4229,7 +4720,7 @@ def main(argv=None) -> int:
             "kappa": p16["16c"], "cli_modes": p16["16d"], "teleop": p16["16d"]["teleop"],
             "reftraj": p17["17a"], "terrain_analytic_twin": p17["17b"]["twin"],
             "terrain_analytic": p17["17b"], "viewer_srb": p17["17c"]["srb"],
-            "viewer_wb": p17["17c"]["wb"]}
+            "viewer_wb": p17["17c"]["wb"], "distributed": distributed}
     extras = ("shape", "per_launch", "call_ms", "plain_call_ms", "library_call_ms", "substep_ms",
               "substep_plain_ms", "substep_bound_ms", "substep_bound_by", "substep_max_abs_err",
               "c2t_ms", "c2t_pd_path_ms", "c2t_bound_ms", "c2t_bound_by", "c2t_max_abs_err",
@@ -4267,7 +4758,7 @@ def main(argv=None) -> int:
                        "terrain_training": terrain_training, "parity": parity_rec,
                        "wholebody": wholebody, "wb_fleet": wb_fleet, "wb_track": wb_track,
                        "wb_parity": wb_parity, "wb_terrain": wb_terrain, "perenv": pe,
-                       "phase16": p16, "phase17": p17,
+                       "phase16": p16, "phase17": p17, "phase18": distributed,
                        "seconds_by_phase": seconds}, f, indent=1,
                       default=str)
     print(json.dumps({"kernels": kernels}))

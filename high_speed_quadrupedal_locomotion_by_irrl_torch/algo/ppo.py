@@ -25,6 +25,16 @@ curriculum), and every update logs the scale its rollout ran at. Parameters
 and the optimizer are updated in place. BPTT goes through
 :func:`..models.lstm.sequence`: on the card the hand-written forward and
 backward LSTM kernels, on the CPU the plain cells under autograd.
+
+With a ``mesh`` (:mod:`..parallel.mesh`, ``cli/train.py --distributed``)
+each rank rolls out its block of the envs, drawing through the rank-block
+generators that :func:`..parallel.train.shard_train_state` gives it, and the
+JAX package's implicit ``psum``s are written out: every epoch draws the
+global permutation, each rank trains on the members of each minibatch it
+owns (possibly none) with local sums over the minibatch's global counts, and
+one all-reduce a minibatch sums the gradients and the loss terms, so the
+clip and Adam are the same on every rank. The update's metrics come from
+global sums and counts.
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import blackpanther as
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import io as mio
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import registry
+from high_speed_quadrupedal_locomotion_by_irrl_torch.parallel import mesh as pmesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +91,8 @@ class TrainState:
     lstm_state: torch.Tensor      # (B, S)
     obs: torch.Tensor             # (B, 35) normalized
     dones: torch.Tensor           # (B,) done flags after the last step
-    gen_env: torch.Generator      # env randomness (resets, noise, commands)
-    gen_train: torch.Generator    # action noise and minibatch permutations
+    gen_env: torch.Generator      # env randomness (resets, noise, commands); a RankBlock when sharded
+    gen_train: torch.Generator    # action noise and minibatch permutations; likewise
     update_idx: int
 
     def replace(self, **kw) -> "TrainState":
@@ -188,7 +199,7 @@ def rollout(env_cfg: EnvConfig, ppo_cfg: PPOConfig, ts: TrainState,
     synchronized around each."""
     pol = ppo_cfg.policy_mod
     env_step = bp.step_batch if env_cfg.use_lanes_physics else bp.step
-    T, B, dev = ppo_cfg.n_steps, env_cfg.num_envs, ts.obs.device
+    T, B, dev = ppo_cfg.n_steps, ts.obs.shape[0], ts.obs.device
     t_start = _clock(dev) if timings is not None else 0.0
     buf = lambda *shape: torch.empty((T, B) + shape, device=dev)  # noqa: E731
     mb_obs, mb_actions = buf(bp.OBS_DIM), buf(bp.ACT_DIM)
@@ -198,7 +209,8 @@ def rollout(env_cfg: EnvConfig, ppo_cfg: PPOConfig, ts: TrainState,
     ret_sum, len_sum = torch.zeros((), device=dev), torch.zeros((), device=dev)
     for t in range(T):
         dones_f = dones.to(obs.dtype)
-        out = pol.forward(ts.params, obs, lstm_state, dones_f)
+        # heads by row_product: a row acts alike whatever the width (and world size)
+        out = pol.forward(ts.params, obs, lstm_state, dones_f, stable_rows=True)
         action = lstm.sample(ts.gen_train, out.mean, out.logstd)
         mb_nlp[t] = lstm.neglogp(out.mean, out.logstd, action)
         # the unclipped action is stored; the env takes the action-space bounds
@@ -219,7 +231,8 @@ def rollout(env_cfg: EnvConfig, ppo_cfg: PPOConfig, ts: TrainState,
     ep_stats = EpStats(ret_sum=ret_sum, len_sum=len_sum, count=torch.sum(mb_dones_after))
     t_collected = _clock(dev) if timings is not None else 0.0
 
-    last_value = pol.forward(ts.params, obs, lstm_state, dones.to(obs.dtype)).value
+    last_value = pol.forward(ts.params, obs, lstm_state, dones.to(obs.dtype),
+                             stable_rows=True).value
     _, returns = advantages(mb_rewards, mb_values, mb_dones_after, last_value,
                             ppo_cfg.gamma, ppo_cfg.lam)
     batch = Batch(obs=mb_obs, actions=mb_actions, values=mb_values, neglogpacs=mb_nlp,
@@ -237,31 +250,53 @@ def rollout(env_cfg: EnvConfig, ppo_cfg: PPOConfig, ts: TrainState,
     return new_ts, batch, ep_stats
 
 
-def ppo_loss(params: lstm.PolicyParams, batch: Batch, ppo_cfg: PPOConfig):
-    """Clipped-surrogate loss over full sequences (BPTT)."""
+class Shard(NamedTuple):
+    """A rank's part of a minibatch spread over ranks: the minibatch's
+    global count of (step, env) samples, its advantages' global mean and
+    population std, and the rank's share of its envs."""
+    n: int
+    adv_mean: torch.Tensor
+    adv_std: torch.Tensor
+    share: float
+
+
+def ppo_loss(params: lstm.PolicyParams, batch: Batch, ppo_cfg: PPOConfig,
+             shard: Optional[Shard] = None):
+    """Clipped-surrogate loss over full sequences (BPTT). With ``shard``,
+    ``batch`` is a rank's part of a minibatch: every mean is the local sum
+    over the global count, the advantages are normalized by the global
+    statistics and the entropy term is weighted by the rank's share, so the
+    loss and metrics summed over the ranks are the whole minibatch's."""
     seq = ppo_cfg.policy_mod.sequence(params, batch.obs, batch.dones_before,
                                       batch.init_lstm_state)
     nlp = lstm.neglogp(seq.mean, seq.logstd, batch.actions)          # (T,B)
     ent = torch.mean(lstm.entropy(seq.logstd))
     vpred = seq.value
 
-    # population statistics (ddof = 0), as numpy and jax.numpy default to
     advs = batch.returns - batch.values
-    advs = (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
+    if shard is None:
+        mean = torch.mean
+        # population statistics (ddof = 0), as numpy and jax.numpy default to
+        advs = (advs - advs.mean()) / (advs.std(correction=0) + 1e-8)
+    else:
+        def mean(x):
+            return torch.sum(x) / shard.n
+        advs = (advs - shard.adv_mean) / (shard.adv_std + 1e-8)
+        ent = ent * shard.share
 
     vpred_clipped = batch.values + torch.clamp(vpred - batch.values,
                                                -ppo_cfg.clip_range, ppo_cfg.clip_range)
-    vf_loss = 0.5 * torch.mean(torch.maximum((vpred - batch.returns) ** 2,
-                                             (vpred_clipped - batch.returns) ** 2))
+    vf_loss = 0.5 * mean(torch.maximum((vpred - batch.returns) ** 2,
+                                       (vpred_clipped - batch.returns) ** 2))
     ratio = torch.exp(batch.neglogpacs - nlp)
     pg1 = -advs * ratio
     pg2 = -advs * torch.clamp(ratio, 1.0 - ppo_cfg.clip_range, 1.0 + ppo_cfg.clip_range)
-    pg_loss = torch.mean(torch.maximum(pg1, pg2))
+    pg_loss = mean(torch.maximum(pg1, pg2))
     loss = pg_loss - ent * ppo_cfg.ent_coef + vf_loss * ppo_cfg.vf_coef
 
     with torch.no_grad():
-        approxkl = 0.5 * torch.mean((nlp - batch.neglogpacs) ** 2)
-        clipfrac = torch.mean((torch.abs(ratio - 1.0) > ppo_cfg.clip_range).to(ratio.dtype))
+        approxkl = 0.5 * mean((nlp - batch.neglogpacs) ** 2)
+        clipfrac = mean((torch.abs(ratio - 1.0) > ppo_cfg.clip_range).to(ratio.dtype))
     return loss, {"pg_loss": pg_loss.detach(), "vf_loss": vf_loss.detach(),
                   "entropy": ent.detach(), "approxkl": approxkl, "clipfrac": clipfrac}
 
@@ -277,24 +312,132 @@ def _select_envs(batch: Batch, idx: torch.Tensor) -> Batch:
         init_lstm_state=torch.index_select(batch.init_lstm_state, 0, idx))
 
 
-def train_minibatch(params: lstm.PolicyParams, opt: torch.optim.Adam, mb: Batch,
-                    ppo_cfg: PPOConfig) -> dict:
+_LOSS_TERMS = ("pg_loss", "vf_loss", "entropy", "approxkl", "clipfrac")
+
+
+def train_minibatch(params: lstm.PolicyParams, opt: torch.optim.Adam, mb: Optional[Batch],
+                    ppo_cfg: PPOConfig, mesh: Optional[pmesh.Mesh] = None,
+                    shard: Optional[Shard] = None) -> dict:
     """One optimizer step on one minibatch: loss, gradients (BPTT), the
     global-norm clip, Adam. Returns the step's metrics as 0-d tensors, the
-    gradient's global norm before the clip among them."""
-    loss, aux = ppo_loss(params, mb, ppo_cfg)
+    gradient's global norm before the clip among them. With ``mesh``, ``mb``
+    is this rank's part (``shard``; None if it owns no env of the
+    minibatch, and then it runs no forward but joins the all-reduce with
+    zeros) and one all-reduce sums the gradients, the loss and its terms."""
     opt.zero_grad(set_to_none=True)
-    loss.backward()
-    grad_norm = clip_by_global_norm_([p.grad for p in params.leaves()], ppo_cfg.max_grad_norm)
+    if mb is not None:
+        loss, aux = ppo_loss(params, mb, ppo_cfg, shard)
+        loss.backward()
+        loss = loss.detach()
+    else:
+        loss = torch.zeros((), device=params.pi_w.device)
+        aux = {k: torch.zeros_like(loss) for k in _LOSS_TERMS}
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params.leaves()]
+    if mesh is not None:
+        flat = pmesh.all_reduce_sum(mesh, torch.cat(
+            [g.flatten() for g in grads] + [torch.stack([loss] + [aux[k] for k in _LOSS_TERMS])]))
+        n_terms = 1 + len(_LOSS_TERMS)
+        for g, part in zip(grads, torch.split(flat, [g.numel() for g in grads] + [n_terms])):
+            g.copy_(part.view_as(g))
+        loss, *terms = flat[-n_terms:].unbind()
+        aux = dict(zip(_LOSS_TERMS, terms))
+    for p, g in zip(params.leaves(), grads):
+        p.grad = g
+    grad_norm = clip_by_global_norm_(grads, ppo_cfg.max_grad_norm)
     opt.step()
-    return {"loss": loss.detach(), **aux, "grad_norm": grad_norm}
+    return {"loss": loss, **aux, "grad_norm": grad_norm}
 
 
 def _mean_metrics(rows: list) -> dict:
     return {k: torch.stack([r[k] for r in rows]).mean() for k in rows[0]}
 
 
-def make_update_fn(env_cfg: EnvConfig, ppo_cfg: PPOConfig) -> Callable:
+def _sharded_epoch(params, opt: torch.optim.Adam, batch: Batch, ppo_cfg: PPOConfig,
+                   mesh: pmesh.Mesh, perm: torch.Tensor) -> list:
+    """One epoch of a rank: ``perm`` (nminibatches, envs a minibatch) holds
+    global env indices; the rank trains on those of its block. The
+    advantages' global mean of every minibatch comes first, then their
+    global centred sums of squares (two all-reduces an epoch)."""
+    lo, hi = pmesh.block(mesh, perm.numel())
+    n = batch.obs.shape[0] * perm.shape[1]
+    mbs = []
+    for idx in perm:
+        own = idx[(idx >= lo) & (idx < hi)] - lo
+        mbs.append((_select_envs(batch, own) if own.numel() else None, own.numel()))
+    zero = torch.zeros((), device=batch.obs.device)
+    advs = [None if mb is None else mb.returns - mb.values for mb, _ in mbs]
+    adv_mean = pmesh.all_reduce_sum(
+        mesh, torch.stack([zero if a is None else a.sum() for a in advs])) / n
+    adv_std = torch.sqrt(pmesh.all_reduce_sum(mesh, torch.stack(
+        [zero if a is None else ((a - m) ** 2).sum() for a, m in zip(advs, adv_mean)])) / n)
+    return [train_minibatch(params, opt, mb, ppo_cfg, mesh,
+                            Shard(n, adv_mean[j], adv_std[j], k / perm.shape[1]))
+            for j, (mb, k) in enumerate(mbs)]
+
+
+def train_epochs(params, opt: torch.optim.Adam, batch: Batch, ppo_cfg: PPOConfig,
+                 gen: torch.Generator, n_envs: int, mesh: Optional[pmesh.Mesh] = None) -> list:
+    """``ppo_cfg.noptepochs`` epochs on a rollout's ``batch``, each a
+    permutation of the ``n_envs`` envs drawn from ``gen`` and cut into
+    ``nminibatches`` steps; returns each epoch's mean metrics. With ``mesh``,
+    ``batch`` is this rank's block of the ``n_envs`` and the permutation the
+    global one."""
+    dev = batch.obs.device
+    epochs = []
+    for _ in range(ppo_cfg.noptepochs):
+        perm = dev_mod.randperm(gen, n_envs, dev).reshape(ppo_cfg.nminibatches, -1)
+        epochs.append(_mean_metrics(
+            _sharded_epoch(params, opt, batch, ppo_cfg, mesh, perm) if mesh is not None else
+            [train_minibatch(params, opt, _select_envs(batch, idx), ppo_cfg) for idx in perm]))
+    return epochs
+
+
+@torch.no_grad()
+def _batch_metrics(batch: Batch, ep: EpStats, z_scale: Optional[torch.Tensor]) -> dict:
+    """The update's metrics of the rollout's batch (unsharded)."""
+    # explained variance (logger parity, ppo2.py:424-435)
+    var_y = torch.var(batch.returns, correction=0)
+    out = {"explained_variance": 1.0 - torch.var(
+        batch.returns - batch.values, correction=0) / (var_y + 1e-8)}
+    # true episode bookkeeping: mean return/length over episodes that
+    # terminated this rollout (= the reference's safe_mean over ep_info_buf,
+    # ppo2.py:424-428); NaN-free when nothing terminated
+    count = torch.clamp(ep.count, min=1.0)
+    out["ep_rew_mean"] = ep.ret_sum / count
+    out["ep_len_mean"] = ep.len_sum / count
+    out["ep_count"] = ep.count
+    out["reward_per_step"] = torch.mean(batch.rewards)
+    if z_scale is not None:
+        out["terrain_z_scale"] = z_scale
+    return out
+
+
+@torch.no_grad()
+def _sharded_batch_metrics(mesh: pmesh.Mesh, batch: Batch, ep: EpStats,
+                           z_sum: Optional[torch.Tensor], n_envs: int) -> dict:
+    """:func:`_batch_metrics` over every rank's batch, from global sums and
+    counts (``z_sum``: this rank's sum of the terrain scale): means first,
+    then centred sums of squares."""
+    n = batch.rewards.shape[0] * n_envs
+    resid = batch.returns - batch.values
+    zero = torch.zeros((), device=batch.obs.device)
+    s = pmesh.all_reduce_sum(mesh, torch.stack([
+        batch.returns.sum(), resid.sum(), batch.rewards.sum(), ep.ret_sum, ep.len_sum,
+        ep.count, zero if z_sum is None else z_sum]))
+    mean_y, mean_r = s[0] / n, s[1] / n
+    css = pmesh.all_reduce_sum(mesh, torch.stack([((batch.returns - mean_y) ** 2).sum(),
+                                                  ((resid - mean_r) ** 2).sum()]))
+    count = torch.clamp(s[5], min=1.0)
+    out = {"explained_variance": 1.0 - (css[1] / n) / (css[0] / n + 1e-8),
+           "ep_rew_mean": s[3] / count, "ep_len_mean": s[4] / count, "ep_count": s[5],
+           "reward_per_step": s[2] / n}
+    if z_sum is not None:
+        out["terrain_z_scale"] = s[6] / n_envs
+    return out
+
+
+def make_update_fn(env_cfg: EnvConfig, ppo_cfg: PPOConfig,
+                   mesh: Optional[pmesh.Mesh] = None) -> Callable:
     """One full PPO update: rollout + noptepochs x env-shuffled minibatches.
 
     Returns a function TrainState -> (TrainState, metrics dict of 0-d tensors
@@ -303,25 +446,26 @@ def make_update_fn(env_cfg: EnvConfig, ppo_cfg: PPOConfig) -> Callable:
     ``loss_last_epoch``), the wall seconds of the update's three parts
     (``time_rollout_s``, ``time_gae_s``, ``time_epochs_s``) and, on a terrain
     config, the mean terrain height scale of its rollout
-    (``terrain_z_scale``).
+    (``terrain_z_scale``). With ``mesh`` the state is a rank's shard
+    (``parallel.train.shard_train_state``) of ``env_cfg.num_envs`` envs,
+    every metric but the times is global, and ``time_collectives_s`` is the
+    part of the times spent in collectives.
     """
     n_envs = env_cfg.num_envs
-    nmb = ppo_cfg.nminibatches
-    if n_envs % nmb:
+    if n_envs % ppo_cfg.nminibatches:
         raise ValueError("num_envs must be divisible by nminibatches")
+    if mesh is not None and n_envs % mesh.world:
+        raise ValueError(f"num_envs {n_envs} must divide evenly across the {mesh.world} ranks")
 
     def update(ts: TrainState):
         timings: dict = {}
-        z_scale = ts.env_state.terrain.z_scale.mean() if env_cfg.terrain else None
+        comm_s = mesh.seconds["collectives"] if mesh is not None else 0.0
+        terr = ts.env_state.terrain if env_cfg.terrain else None
+        z_scale = None if terr is None else terr.z_scale.sum() if mesh else terr.z_scale.mean()
         ts, batch, ep = rollout(env_cfg, ppo_cfg, ts, timings)
         dev = batch.obs.device
         t0 = _clock(dev)
-        epochs = []
-        for _ in range(ppo_cfg.noptepochs):
-            perm = torch.randperm(n_envs, generator=ts.gen_train, device=dev).reshape(nmb, -1)
-            epochs.append(_mean_metrics([
-                train_minibatch(ts.params, ts.opt_state, _select_envs(batch, idx), ppo_cfg)
-                for idx in perm]))
+        epochs = train_epochs(ts.params, ts.opt_state, batch, ppo_cfg, ts.gen_train, n_envs, mesh)
         metrics = _mean_metrics(epochs)   # entropy: as logged before the projection below
         metrics["loss_first_epoch"] = epochs[0]["loss"]
         metrics["loss_last_epoch"] = epochs[-1]["loss"]
@@ -334,20 +478,11 @@ def make_update_fn(env_cfg: EnvConfig, ppo_cfg: PPOConfig) -> Callable:
                 bump = (torch.clamp(ppo_cfg.entropy_floor - lstm.entropy(logstd), min=0.0)
                         / logstd.shape[-1])
                 logstd.add_(bump)
-            # explained variance (logger parity, ppo2.py:424-435)
-            var_y = torch.var(batch.returns, correction=0)
-            metrics["explained_variance"] = 1.0 - torch.var(
-                batch.returns - batch.values, correction=0) / (var_y + 1e-8)
-            # true episode bookkeeping: mean return/length over episodes that
-            # terminated this rollout (= the reference's safe_mean over ep_info_buf,
-            # ppo2.py:424-428); NaN-free when nothing terminated
-            count = torch.clamp(ep.count, min=1.0)
-            metrics["ep_rew_mean"] = ep.ret_sum / count
-            metrics["ep_len_mean"] = ep.len_sum / count
-            metrics["ep_count"] = ep.count
-            metrics["reward_per_step"] = torch.mean(batch.rewards)
-        if z_scale is not None:
-            metrics["terrain_z_scale"] = z_scale
+        if mesh is not None:
+            metrics.update(_sharded_batch_metrics(mesh, batch, ep, z_scale, n_envs))
+            metrics["time_collectives_s"] = mesh.seconds["collectives"] - comm_s
+        else:
+            metrics.update(_batch_metrics(batch, ep, z_scale))
         metrics["time_rollout_s"] = timings["rollout_s"]
         metrics["time_gae_s"] = timings["gae_s"]
         metrics["time_epochs_s"] = _clock(dev) - t0
@@ -361,7 +496,7 @@ def learn(env_cfg: EnvConfig, ppo_cfg: PPOConfig, total_timesteps: int,
           seed: int, params: Optional[lstm.PolicyParams] = None,
           eval_every_n: int = 100, callback=None, verbose: bool = True,
           metrics_hook=None, opt_state: Optional[dict] = None, state_hook=None,
-          device=None) -> TrainState:
+          device=None, mesh: Optional[pmesh.Mesh] = None) -> TrainState:
     """Training loop (PPO2.learn parity: periodic eval hook + checkpointing
     are the caller's callback, mirroring ppo2.py:331-341; ``metrics_hook``
     fires every update: the CLI uses it to persist metrics.jsonl).
@@ -369,13 +504,22 @@ def learn(env_cfg: EnvConfig, ppo_cfg: PPOConfig, total_timesteps: int,
     (``models.io.load_checkpoint``), its learning rate included, as the JAX
     package's resume does; env/LSTM states re-init fresh, which is
     sound for on-policy PPO. ``state_hook(ts, frac) -> ts`` runs before each
-    update with the run fraction in [0, 1]."""
-    ts = init_train_state(env_cfg, ppo_cfg, seed, params, device)
+    update with the run fraction in [0, 1]. With ``mesh`` every rank builds
+    the world-1 state on ``mesh.device``, checks that its parameters are the
+    other ranks' and trains its shard (``parallel.train.shard_train_state``);
+    the metrics are global, and the caller keeps the hooks to one rank."""
+    ts = init_train_state(env_cfg, ppo_cfg, seed, params,
+                          device if mesh is None else mesh.device)
     if opt_state is not None and not mio.adam_state_from_numpy(ts.opt_state, ts.params,
                                                                opt_state):
         print("resume: checkpoint optimizer state has a different "
               "structure (other parameter shapes); starting Adam fresh")
-    update_fn = make_update_fn(env_cfg, ppo_cfg)
+    if mesh is not None:
+        # parallel.train builds on this module
+        from high_speed_quadrupedal_locomotion_by_irrl_torch.parallel import train as ptrain
+        pmesh.replicated(mesh, ts.params.leaves(), "parameters")
+        ts = ptrain.shard_train_state(mesh, ts)
+    update_fn = make_update_fn(env_cfg, ppo_cfg, mesh)
     batch_size = env_cfg.num_envs * ppo_cfg.n_steps
     n_updates = max(1, total_timesteps // batch_size)
     try:

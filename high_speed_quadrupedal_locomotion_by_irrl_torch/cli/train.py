@@ -24,29 +24,43 @@ forces at any width and which alone runs ``HardContact`` and ``Crutial``.
                      --load artifacts/irrl_tpu_terrain_relaxed --num-envs 1024 \
                      --lr 1e-4 --lr-final 2e-5 --entropy-floor 5.2 \
                      --terrain-z-curriculum 0.05,0.1
+
+  multi-GPU:  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+                  -m high_speed_quadrupedal_locomotion_by_irrl_torch.cli.train --distributed \
+                  --cfg .../configs/bp5_train.yaml --num-envs 4096 ...
+
+``--distributed`` is the JAX package's data parallelism over
+``torch.distributed`` (:mod:`..parallel`): each rank steps its block of
+``--num-envs`` (which must split evenly), the policy is replicated and the
+gradients and metrics are summed over the ranks, so W ranks compute what one
+does. Under ``torch.distributed.run`` the group comes from its environment
+(``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``; each rank on
+``cuda:$LOCAL_RANK``); without it, a world of one that still runs the
+collectives. NCCL on the card, gloo on the CPU. The lanes rule reads the global ``--num-envs``. Only rank 0
+prints, makes the run directory and writes checkpoints, the CSV export,
+``metrics.jsonl`` and the dashboard. ``--terrain-z-curriculum`` is refused
+under ``--distributed`` (the JAX package ignores it there).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
 import torch
+import torch.distributed as dist
 
 from high_speed_quadrupedal_locomotion_by_irrl_torch import config as cfg_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch.algo import ppo
 from high_speed_quadrupedal_locomotion_by_irrl_torch.analysis import dashboard
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import io as mio
+from high_speed_quadrupedal_locomotion_by_irrl_torch.parallel import mesh as pmesh
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils.metrics import JsonlLogger
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils.run_dir import make_run_dir
 
-# flags of the JAX package's cli/train.py whose code is not in the port yet, with
-# the ROADMAP.md queue item that brings each
-_NOT_PORTED = {
-    "distributed": ("--distributed", "multi-GPU training (ROADMAP.md, Queue 1: multi-GPU)"),
-}
 # the JAX package's rule (cli/train.py:93-118): the batch-in-lanes physics from this
 # many envs on, unless --no-lanes; the per-env physics below it, unless --lanes
 LANES_MIN_ENVS = 1024
@@ -94,7 +108,9 @@ def parse_args(argv):
     p.add_argument("--max-updates", type=int, default=None,
                    help="cap PPO updates directly (overrides --max-iter; "
                         "small smoke runs)")
-    p.add_argument("--distributed", action="store_true", help="not in the port yet (raises)")
+    p.add_argument("--distributed", action="store_true",
+                   help="shard the env batch over the ranks of torch.distributed "
+                        "(torch.distributed.run; alone, a world of one)")
     p.add_argument("--lanes", action="store_true",
                    help="batch-in-lanes physics (step_batch: one fused kernel launch a "
                         f"control step); on by itself at --num-envs >= {LANES_MIN_ENVS}")
@@ -107,15 +123,15 @@ def parse_args(argv):
 
 def main(argv=None):
     args = parse_args(argv if argv is not None else sys.argv[1:])
-    for dest, (flag, what) in _NOT_PORTED.items():
-        if getattr(args, dest):
-            raise NotImplementedError(f"{flag} is not in the PyTorch port yet: it comes with "
-                                      f"{what}")
     env_cfg = cfg_mod.from_yaml(args.cfg) if args.cfg else cfg_mod.train_default()
     state_hook = None
     if args.terrain_z_curriculum:
         if not env_cfg.terrain:
             raise SystemExit("--terrain-z-curriculum needs a terrain config (Terrain: true)")
+        if args.distributed:
+            raise NotImplementedError(
+                "--terrain-z-curriculum is not applied under --distributed (multi-GPU): the JAX "
+                "package ignores it there; train the curriculum without --distributed")
         lo, hi = (float(x) for x in args.terrain_z_curriculum.split(","))
 
         def state_hook(ts: ppo.TrainState, frac: float) -> ppo.TrainState:
@@ -123,17 +139,35 @@ def main(argv=None):
             terr = terr._replace(z_scale=torch.full_like(terr.z_scale, lo + (hi - lo) * frac))
             return ts.replace(env_state=ts.env_state.replace(terrain=terr))
     device = dev_mod.resolve(args.device)
+    mesh, made_group = None, False
+    if args.distributed:
+        made_group = pmesh.init_distributed(device=device)
+        mesh = pmesh.make_mesh(device)
+        device = mesh.device
+    try:
+        return _main(args, env_cfg, state_hook, device, mesh)
+    finally:
+        if made_group:
+            pmesh.shutdown()
+
+
+def _main(args, env_cfg, state_hook, device, mesh):
+    rank0 = mesh is None or mesh.rank == 0
+    log = print if rank0 else (lambda *a, **k: None)
     if args.seed is not None:
         env_cfg = env_cfg.replace(seed=args.seed)
     if args.num_envs is not None:
         env_cfg = env_cfg.replace(num_envs=args.num_envs)
     env_cfg = env_cfg.replace(use_lanes_physics=use_lanes(env_cfg.num_envs, args.lanes,
                                                           args.no_lanes))
+    if mesh is not None:   # raises on every rank alike unless the envs split evenly
+        lo, hi = pmesh.block(mesh, env_cfg.num_envs)
+        log(f"multi-GPU: {mesh.world} ranks over {mesh.backend}, {hi - lo} envs a rank")
     if env_cfg.use_lanes_physics:
-        print(f"physics path: batch-in-lanes (num_envs={env_cfg.num_envs}) on {device}")
+        log(f"physics path: batch-in-lanes (num_envs={env_cfg.num_envs}) on {device}")
     else:
-        print(f"physics path: per-env (num_envs={env_cfg.num_envs}; lanes from --num-envs "
-              f">= {LANES_MIN_ENVS} or with --lanes) on {device}")
+        log(f"physics path: per-env (num_envs={env_cfg.num_envs}; lanes from --num-envs "
+            f">= {LANES_MIN_ENVS} or with --lanes) on {device}")
     ppo_cfg = ppo.PPOConfig(learning_rate=args.lr, lr_final=args.lr_final,
                             n_steps=args.n_steps or env_cfg.episode_len,
                             entropy_floor=args.entropy_floor)
@@ -143,7 +177,7 @@ def main(argv=None):
     params, opt_state = None, None
     if args.resume:
         params, opt_state, step = mio.load_checkpoint(args.resume, device)
-        print(f"resuming params+optimizer from {args.resume} (update {step})")
+        log(f"resuming params+optimizer from {args.resume} (update {step})")
     elif args.load:
         if os.path.isdir(args.load):
             params = mio.load_bp5_csv(args.load, device=device)
@@ -152,8 +186,12 @@ def main(argv=None):
         if args.logstd is not None:
             params.logstd = torch.full_like(params.logstd, args.logstd)
 
-    run_dir = make_run_dir(args.log_dir, env_cfg, [args.cfg] if args.cfg else [])
-    print(f"run dir: {run_dir}")
+    run_dir = make_run_dir(args.log_dir, env_cfg, [args.cfg] if args.cfg else []) if rank0 else None
+    if mesh is not None:   # every rank returns rank 0's run directory
+        box = [run_dir]
+        dist.broadcast_object_list(box, src=0)
+        run_dir = box[0]
+    log(f"run dir: {run_dir}")
 
     def save(ts: ppo.TrainState, tag):
         terr = ts.env_state.terrain
@@ -162,12 +200,15 @@ def main(argv=None):
                             terrain_z_scale=None if terr is None else float(terr.z_scale.mean()))
         mio.save_bp5_csv(ts.params, os.path.join(run_dir, f"csv_{tag}"))
 
-    with JsonlLogger(os.path.join(run_dir, "metrics.jsonl")) as mlog:
+    with (JsonlLogger(os.path.join(run_dir, "metrics.jsonl")) if rank0
+          else contextlib.nullcontext()) as mlog:
         ts = ppo.learn(env_cfg, ppo_cfg, args.max_iter, env_cfg.seed, params,
                        eval_every_n=args.eval_every,
-                       callback=lambda ts, metrics: save(ts, ts.update_idx),
-                       metrics_hook=mlog.write, opt_state=opt_state, state_hook=state_hook,
-                       device=device)
+                       callback=(lambda ts, metrics: save(ts, ts.update_idx)) if rank0 else None,
+                       verbose=rank0, metrics_hook=mlog.write if rank0 else None,
+                       opt_state=opt_state, state_hook=state_hook, device=device, mesh=mesh)
+    if not rank0:
+        return run_dir
     save(ts, "final")
     try:  # render the curve board beside the raw jsonl (best effort, as the JAX CLI)
         dashboard.training_dashboard(dashboard.load_metrics(run_dir),

@@ -9,6 +9,8 @@ products (docs/DESIGN.md).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -34,3 +36,50 @@ def tensor(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, np.ndarray) and not x.flags.writeable:
         x = x.copy()
     return torch.as_tensor(x, dtype=DTYPE, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankBlock:
+    """Rows ``[lo, hi)`` of draws over ``total`` envs from the shared ``gen``."""
+    gen: torch.Generator
+    lo: int
+    hi: int
+    total: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.gen.device
+
+    def global_shape(self, shape) -> tuple:
+        shape = tuple(shape)
+        if not shape or shape[0] != self.hi - self.lo:
+            raise ValueError(f"a draw of shape {shape} on the block [{self.lo}, {self.hi}) of "
+                             f"{self.total} envs must lead with its {self.hi - self.lo} envs")
+        return (self.total,) + shape[1:]
+
+
+def rand(gen: torch.Generator | RankBlock, shape, device=None, dtype=DTYPE) -> torch.Tensor:
+    """Uniform [0, 1) of ``shape``; on a block, its rows of the global draw."""
+    if isinstance(gen, RankBlock):
+        return torch.rand(gen.global_shape(shape), generator=gen.gen, device=device,
+                          dtype=dtype)[gen.lo:gen.hi]
+    return torch.rand(shape, generator=gen, device=device, dtype=dtype)
+
+
+def randn(gen: torch.Generator | RankBlock, shape, device=None, dtype=DTYPE) -> torch.Tensor:
+    """Standard normal of ``shape``; on a block, its rows of the global draw."""
+    if isinstance(gen, RankBlock):
+        return torch.randn(gen.global_shape(shape), generator=gen.gen, device=device,
+                           dtype=dtype)[gen.lo:gen.hi]
+    return torch.randn(shape, generator=gen, device=device, dtype=dtype)
+
+
+def randperm(gen: torch.Generator | RankBlock, n: int, device=None) -> torch.Tensor:
+    """A permutation of ``range(n)``; on a block ``n`` must be its ``total``:
+    the global permutation, whole on every rank."""
+    if isinstance(gen, RankBlock):
+        if n != gen.total:
+            raise ValueError(f"a permutation on a block of {gen.total} envs must be of "
+                             f"{gen.total}, not {n}")
+        gen = gen.gen
+    return torch.randperm(n, generator=gen, device=device)

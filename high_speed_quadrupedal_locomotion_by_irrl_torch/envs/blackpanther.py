@@ -210,8 +210,7 @@ def smooth_function2(phase: torch.Tensor, slope: float, lam: float) -> torch.Ten
 
 
 def _uniform(gen: torch.Generator, shape, device, lo=-1.0, hi=1.0) -> torch.Tensor:
-    x = torch.rand(shape, generator=gen, device=device, dtype=dev_mod.DTYPE)
-    return lo + (hi - lo) * x
+    return lo + (hi - lo) * dev_mod.rand(gen, shape, device)
 
 
 # --- command resampling (command_obs_update, Environment.hpp:1010-1109) ------
@@ -313,10 +312,8 @@ def _raw_observation(cfg: EnvConfig, gen: torch.Generator, gc: torch.Tensor,
     if nf:
         joints = joints + _uniform(gen, (B, 12), dev) * cfg.joint_noise * nf
         joint_vel = joint_vel + _uniform(gen, (B, 12), dev) * cfg.joint_velocity_noise * nf
-        posture = posture + torch.randn((B, 3), generator=gen, device=dev) \
-            * cfg.posture_noise_std * nf
-        omega = omega + torch.randn((B, 3), generator=gen, device=dev) \
-            * cfg.omega_noise_std * nf
+        posture = posture + dev_mod.randn(gen, (B, 3), dev) * cfg.posture_noise_std * nf
+        omega = omega + dev_mod.randn(gen, (B, 3), dev) * cfg.omega_noise_std * nf
     obs = torch.cat([command_filtered, phase, joints, joint_vel, posture, omega], dim=-1)
     return obs, v_body, w_body, R
 

@@ -187,6 +187,15 @@ def _reset_cell(w: LSTMWeights, x, c, h, mask):
     return lstm_cuda.lstm_cell(w, x.contiguous(), c * keep, h * keep)
 
 
+def row_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (x (..., k), w (k, n)) as a product and a sum over k, whose
+    bits in a row do not depend on how many rows there are: cuBLAS picks its
+    algorithm, and with it a row's rounding, by the batch's width. The
+    training rollout computes its heads so, and W ranks of B / W envs then
+    act as one rank of B envs does."""
+    return (x.unsqueeze(-2) * w.T).sum(-1)
+
+
 class ForwardOut(NamedTuple):
     mean: torch.Tensor      # (B, act)
     value: torch.Tensor     # (B,)
@@ -195,10 +204,12 @@ class ForwardOut(NamedTuple):
 
 
 def forward(params: PolicyParams, obs: torch.Tensor, state: torch.Tensor,
-            done: torch.Tensor) -> ForwardOut:
+            done: torch.Tensor, stable_rows: bool = False) -> ForwardOut:
     """Single-step forward (act model). obs (B, 35), state (B, S), done (B,):
     the done mask of the *previous* step resets the state. With per-row
-    params (:func:`per_row`) row b runs weight set b; logstd is then (B, act)."""
+    params (:func:`per_row`) row b runs weight set b; logstd is then (B, act).
+    ``stable_rows``: the heads through :func:`row_product` (the cells work
+    row by row already), so a row's outputs do not depend on B."""
     chs = _split_state(params, state)
     n_pi, n_v = len(params.pi_lstm), len(params.v_lstm)
     mask = done.to(obs.dtype).contiguous()
@@ -233,8 +244,9 @@ def forward(params: PolicyParams, obs: torch.Tensor, state: torch.Tensor,
         mean = torch.bmm(pi_latent[:, None], params.pi_w)[:, 0] + params.pi_b
         value = (torch.bmm(v_latent[:, None], params.vf_w)[:, 0] + params.vf_b)[..., 0]
     else:
-        mean = pi_latent @ params.pi_w + params.pi_b
-        value = (v_latent @ params.vf_w + params.vf_b)[..., 0]
+        product = row_product if stable_rows else torch.matmul
+        mean = product(pi_latent, params.pi_w) + params.pi_b
+        value = (product(v_latent, params.vf_w) + params.vf_b)[..., 0]
     packed = torch.cat([t for ch in pi_chs + v_chs for t in ch], dim=-1)
     return ForwardOut(mean=mean, value=value, state=packed, logstd=params.logstd)
 
@@ -275,7 +287,7 @@ def sequence(params: PolicyParams, obs_seq: torch.Tensor, done_seq: torch.Tensor
 # --- DiagGaussian distribution ops (stable-baselines distributions parity) ----
 
 def sample(gen: torch.Generator, mean: torch.Tensor, logstd: torch.Tensor) -> torch.Tensor:
-    noise = torch.randn(mean.shape, generator=gen, device=mean.device, dtype=mean.dtype)
+    noise = dev_mod.randn(gen, mean.shape, mean.device, mean.dtype)
     return mean + torch.exp(logstd) * noise
 
 

@@ -19,7 +19,7 @@ import torch
 
 from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models.lstm import (  # noqa: F401
-    ForwardOut, _ortho, entropy, neglogp, sample,
+    ForwardOut, _ortho, entropy, neglogp, row_product, sample,
 )
 
 
@@ -79,18 +79,20 @@ def init(gen: torch.Generator, obs_dim: int = 35, act_dim: int = 12,
                      vf_b=torch.zeros(1, device=device))
 
 
-def _tower(layers, x: torch.Tensor) -> torch.Tensor:
+def _tower(layers, x: torch.Tensor, product=torch.matmul) -> torch.Tensor:
     for w, b in layers:
-        x = torch.tanh(x @ w + b)
+        x = torch.tanh(product(x, w) + b)
     return x
 
 
 def forward(params: MlpParams, obs: torch.Tensor, state: torch.Tensor,
-            done: torch.Tensor) -> ForwardOut:
+            done: torch.Tensor, stable_rows: bool = False) -> ForwardOut:
     """obs (..., obs_dim) -> means (..., act), values (...); ``state`` is
-    passed through and ``done`` ignored."""
-    mean = _tower(params.pi_layers, obs) @ params.pi_w + params.pi_b
-    value = (_tower(params.v_layers, obs) @ params.vf_w + params.vf_b)[..., 0]
+    passed through and ``done`` ignored. ``stable_rows``: every product
+    through ``row_product``, so a row's outputs do not depend on the batch."""
+    product = row_product if stable_rows else torch.matmul
+    mean = product(_tower(params.pi_layers, obs, product), params.pi_w) + params.pi_b
+    value = (product(_tower(params.v_layers, obs, product), params.vf_w) + params.vf_b)[..., 0]
     return ForwardOut(mean=mean, value=value, state=state, logstd=params.logstd)
 
 

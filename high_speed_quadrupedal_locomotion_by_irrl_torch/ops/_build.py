@@ -4,13 +4,16 @@ Each source in ``csrc/`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds) and
 loaded with ``ctypes``. Libraries go to ``build/torch_kernels/`` at the repo
 root, named by a hash of their source and flags, and are built at first use;
-all missing libraries are built by concurrent ``nvcc`` processes. Nothing is
+all missing libraries are built by concurrent ``nvcc`` processes, under a file
+lock, so processes that start at once (the ranks of a distributed run) build
+them once and the others wait and load them. Nothing is
 built or imported at module import: the CPU-only tests import every module.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -46,11 +49,19 @@ def _lib_path(name: str) -> Path:
 def build(names=SOURCES) -> dict[str, float]:
     """Build the missing libraries of ``names``, one ``nvcc`` each, all
     started together. Returns wall seconds per library built; raises with
-    the compiler's output if one fails."""
-    todo = [n for n in names if not _lib_path(n).exists()]
-    if not todo:
+    the compiler's output if one fails. The check and the build hold the
+    build directory's lock."""
+    if all(_lib_path(n).exists() for n in names):
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked([n for n in names if not _lib_path(n).exists()])
+
+
+def _build_locked(todo: list) -> dict[str, float]:
+    if not todo:
+        return {}
     nvcc = _nvcc()
     procs, t0 = {}, time.perf_counter()
     for name in todo:

@@ -298,8 +298,8 @@ def test_rollout_is_reproduced_by_the_jax_package(monkeypatch):
     n = lambda t: t.detach().numpy().astype(np.float32)  # noqa: E731
     forwards, gae_args, env_actions = [], [], []
     real_forward, real_gae, real_step = tlstm.forward, tppo.advantages, tppo.bp.step_batch
-    monkeypatch.setattr(tlstm, "forward", lambda p, o, s, d: (
-        forwards.append((n(o), n(s), n(d))) or real_forward(p, o, s, d)))
+    monkeypatch.setattr(tlstm, "forward", lambda p, o, s, d, **kw: (
+        forwards.append((n(o), n(s), n(d))) or real_forward(p, o, s, d, **kw)))
     monkeypatch.setattr(tppo, "advantages", lambda *a: gae_args.append(a) or real_gae(*a))
     monkeypatch.setattr(tppo.bp, "step_batch", lambda c, st, a, g: (
         env_actions.append(n(a)) or real_step(c, st, a, g)))

@@ -15,6 +15,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from high_speed_quadrupedal_locomotion_by_irrl_torch import config as tconfig
 from high_speed_quadrupedal_locomotion_by_irrl_torch.algo import ppo as tppo
@@ -101,10 +102,16 @@ def test_resume_continues_the_run(first_run, tmp_path):
 
 
 @pytest.mark.parametrize("flag,match", [(["--distributed"], "multi-GPU")])
-def test_flags_that_are_not_ported_raise(flag, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match) as e:
-        ttrain.main(TINY + ["--max-updates", "1", "--log-dir", str(tmp_path)] + flag)
-    assert "ROADMAP.md" in str(e.value) and not os.listdir(tmp_path)
+def test_flags_that_are_not_ported_raise(flag, match, tmp_path, capsys):
+    """No flag of the JAX package's cli/train.py is refused any more:
+    --distributed, the last one, trains data-parallel (here a world of one
+    over a local store and gloo), says so, writes one run directory and
+    leaves no process group behind."""
+    run = ttrain.main(TINY + ["--max-updates", "1", "--log-dir", str(tmp_path)] + flag)
+    assert f"{match}: 1 ranks over gloo, 4 envs a rank" in capsys.readouterr().out
+    assert os.listdir(tmp_path) == [os.path.basename(run)] and not dist.is_initialized()
+    assert len(tmetrics.read_jsonl(os.path.join(run, "metrics.jsonl"))) == 1
+    assert os.path.exists(os.path.join(run, "ckpt_final.pkl"))
 
 
 class _Picked(Exception):
@@ -139,7 +146,7 @@ def test_terrain_curriculum_without_a_terrain_config_exits(tmp_path):
         ttrain.main(TINY + ["--max-updates", "1", "--log-dir", str(tmp_path),
                             "--terrain-z-curriculum", "0.0,0.1"])
     assert not os.listdir(tmp_path)
-    # with --distributed, which still raises, the curriculum never runs unsharded
+    # --distributed refuses the curriculum (the JAX package ignores it there)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         ttrain.main(TINY + ["--cfg", os.path.join(TORCH_PKG, "configs", "bp5_relax_terrain.yaml"),
                             "--log-dir", str(tmp_path), "--distributed",
