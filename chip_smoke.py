@@ -8,10 +8,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: both hand-written kernels from csrc/ with nvcc (in parallel), with
    ptxas' register and spill report;
 3. kernel checks: every kernel entry point against its plain PyTorch version
-   on the card (the LSTM's training-mode forward and its backward kernel
-   against autograd of the plain cells: outputs, dx, dc, dh, dgates and the
-   weight gradients), at the main path's shapes and two ragged batches, then timed
-   (torch.profiler's device time, median of 30 launches) beside its plain
+   on the card (the LSTM's two sequence kernels, one launch a layer each way,
+   against autograd of the plain cells at T = 1, 4 and 750: outputs, dx, dc,
+   dh, dgates and the weight gradients), at the main path's shapes and two
+   ragged batches, then timed (torch.profiler's device time, median of 30
+   launches, or CUDA events around a call where no profiler window held its
+   events; the sequence kernels at the epochs' T = 750) beside its plain
    version and a library yardstick. The record of each kernel reads the entry
    point the main path launches (the fused control step; the two-tower LSTM
    launch), with the single substep and single cell beside it. The fused
@@ -32,11 +34,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    split by where they are dispatched;
 6. BPTT: on a 32-step rollout's batch at 1024 envs, ``ppo_loss`` and the
    gradient of every parameter leaf through the kernels against the plain
-   cells under autograd, with the launch counts checked (2 training-mode
-   forward and 2 backward launches a step of ``sequence``);
+   cells under autograd, with the launch counts checked (one sequence-forward
+   and one sequence-backward launch a layer of ``sequence``);
 7. training at full width: the port's ``cli.train`` for a few updates at 1024
    envs x 750 steps x 10 epochs, warm-started from the flagship export, with
-   the launch counts of all four kernels checked, every metric finite, the
+   the launch counts of every kernel checked, every metric finite, the
    loss falling within each update, the parameters changed, the first
    rollout's reward above a freshly initialised policy's, and the run
    directory's checkpoint and CSV export holding the trained parameters;
@@ -66,7 +68,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 11. terrain training: the port's ``cli.train`` with the flags of
    ``scripts/r5_terrain_leg.sh`` and ``--terrain-z-curriculum 0.05,0.1`` at
    1024 envs x 750 steps x 10 epochs for 2 updates: z_scale 0.05 then 0.1,
-   the launch counts of all four kernels, finite loss, gradient norm and
+   the launch counts of every kernel, finite loss, gradient norm and
    metrics, ``metrics.jsonl``, and the final checkpoint evaluated by
    ``cli.test`` on the terrain config; seconds an update split into rollout,
    GAE and epochs, and PyTorch ops a control step of the terrain rollout;
@@ -102,11 +104,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    falls); (c) ``analysis.parity.mpc_vs_bp5`` at cmd 1 (through both
    kernels), its solve from JAX's start held to JAX's cost and mae /
    torque_mae to JAX's; (d) a 15-step ``terrain_model=True`` loop on the
-   sampled heightmap, finite and upright. Phases 14, 15, 10-12, 16a, 16d and
-   17c run in that order in a second process (``--side-worker``) alongside
-   phases 7, 8, 16b, 16c, 9, 13, 17a and 17b, whose loops, like theirs, are host-bound on one
-   Python thread with the card mostly idle (phase 18's rank processes run
-   beside 13, 17a and 17b);
+   sampled heightmap, finite and upright. Phases 14a-c, 15, 10-12 and 16a
+   run in that order in a second process (``--side-worker``) alongside
+   phases 7, 8, 16b, 16c, 9, 13, 17a, 17b, 17c, 16d and 14d, whose loops,
+   like theirs, are host-bound on one Python thread with the card mostly
+   idle (phase 18's rank processes run beside 13, 17a and 17b);
 15. the per-env control step (``envs.blackpanther.step``: the dense per-env
    physics in plain PyTorch, no physics launch, asserted; ``--perenv-worker
    PATH`` runs this phase alone): (a) the flagship at cmd 1-5
@@ -151,7 +153,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    JAX's range (every physics launch of the two in the analytic mode,
    asserted); (c) ``cli.mpc --viewer`` with ``--engine srb`` (50 steps) and
    ``--engine wb`` (10 steps), and ``NumpyVecEnv`` recording 30 steps to a
-   GIF, in the second process; (d) phase 7 checks ``dashboard.png`` in the
+   GIF, in the main process after phase 18; (d) phase 7 checks ``dashboard.png`` in the
    training run dir (the dashboard and the GIF are matplotlib figures: on a
    machine without it, their skip is checked and recorded). Phase 3 holds the analytic instantiation to its plain loop for one control
    step, times it beside the flat step and reads its ptxas report.
@@ -261,6 +263,7 @@ REPS = 30
 # launches a control step on the main path: one fused physics step; one LSTM
 # pair launch a layer, two layers
 PHYS_LAUNCHES_PER_STEP, LSTM_LAUNCHES_PER_STEP = 1, 2
+LSTM_LAYERS = 2   # the flagship's towers: one sequence launch of both a layer, each way
 # the first design of each kernel (one thread an env; one thread a row and
 # unit), measured by this script on an NVIDIA H100 80GB HBM3 at 700 W before the
 # redesign and recorded in PERF.md; quoted in the log beside this run's times,
@@ -285,7 +288,9 @@ TRAIN_CFG = os.path.join(ROOT, "high_speed_quadrupedal_locomotion_by_irrl_torch"
 TRAIN_UPDATES, TRAIN_STEPS, TRAIN_EPOCHS = 2, 750, 10
 TRAIN_LOG_DIR = os.path.join(ROOT, "runs", "chip_smoke")
 BPTT_STEPS = 32      # the plain path's autograd graph at 750 steps would not be a fair use of memory
-BWD_TIMING_STEPS = 8  # a short sequence: all but its last step's launch read what a step of BPTT reads
+SEQ_REPS = 10              # sequences timed at TRAIN_STEPS
+# the per-step training kernels these replaced, a launch of both towers (PERF.md's kernel table)
+PREV_SEQ_STEP_MS = {"train": {35: 0.0087, 48: 0.0091}, "bwd": {35: 0.0098, 48: 0.0131}}
 GRAD_RTOL = 1e-4     # a gradient against autograd's, relative to the leaf's largest entry
 # the SRB closed loop's contact: high_speed_setup's contact_impulse_mass over simulation_dt
 MPC_IMPULSE_MASS = 2.0
@@ -1122,7 +1127,8 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int, kernel: str | None = None, tries: int = 5) -> float | None:
+def device_ms(fn, reps: int, kernel: str | None = None, tries: int = 5,
+              warm_up: bool = True) -> float | None:
     """Device time of one call from torch.profiler's CUDA events: the median
     duration of the named kernel's launches, or else all of a call's device
     time, as the mean event times the events a call. The profiler can lose
@@ -1130,16 +1136,17 @@ def device_ms(fn, reps: int, kernel: str | None = None, tries: int = 5) -> float
     ones in the same process; once about half), and a plain sum then reads
     low: a window that lacks more than 4 events or a tenth of them to a
     whole number a call, or holds no device event at all, is profiled again
-    (up to ``tries`` windows); None if none would do."""
-    fn()
-    torch.cuda.synchronize()
+    (up to ``tries`` windows); None if none would do. ``warm_up``: one call
+    first, where nothing has called ``fn`` just before."""
+    if warm_up:
+        fn()
+        torch.cuda.synchronize()
     for _ in range(tries):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        durs = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+        durs = device_events(prof)
         if kernel is not None:
             durs = [(n, d) for n, d in durs if kernel in n]
         if durs and kernel is not None:
@@ -1150,11 +1157,34 @@ def device_ms(fn, reps: int, kernel: str | None = None, tries: int = 5) -> float
     return None
 
 
+def device_events(prof) -> list[tuple[str, float]]:
+    """(name, ms) of every device event of a finished torch.profiler window,
+    read from its raw results. ``prof.events()`` builds a Python object and a
+    tree over every host and device event first, which for the whole-body
+    solves' windows (up to a million events) takes many times as long as
+    reading them raw. The names are the raw ones (mangled where the kernel's
+    is)."""
+    hidden = lambda e: getattr(e, "is_hidden_event", lambda: False)()  # noqa: E731
+    return [(e.name(), (e.end_ns() - e.start_ns()) / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA and not hidden(e)]
+
+
+def _events_ms(fn, keep: bool = False):
+    """CUDA events around one call of ``fn`` (-> ms, or (ms, its result))."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return (a.elapsed_time(b), out) if keep else a.elapsed_time(b)
+
+
 def timings(fn, reps: int = REPS, kernel: str | None = None) -> dict:
     """``ms``: device time (CUDA events where the profiler saw none);
     ``call_ms``: CUDA events around one call, the host's issue time included."""
     call = time_ms(fn, reps)
-    dev = device_ms(fn, reps, kernel)
+    dev = device_ms(fn, reps, kernel, warm_up=False)   # time_ms has warmed it up
     return {"ms": call if dev is None else dev, "call_ms": call,
             "source": "events" if dev is None else "profiler"}
 
@@ -1865,20 +1895,25 @@ def entry_record(per_launch: dict) -> dict:
 
 def kernel_medians(fn, reps: int, names, tries: int = 3) -> dict:
     """Median device time (ms) of the launches of each named kernel inside
-    ``reps`` calls of ``fn``, from torch.profiler's CUDA events."""
+    ``reps`` calls of ``fn``, from torch.profiler's CUDA events; None for a
+    kernel no window of ``tries`` held (the profiler can lose events: §7 of
+    PERF.md), which the caller then times by CUDA events."""
     fn()
     torch.cuda.synchronize()
+    seen = {n: None for n in names}
     for _ in range(tries):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        durs = {n: [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA and n in e.name]
-                for n in names}
-        if all(durs.values()):
-            return {n: statistics.median(d) for n, d in durs.items()}
-    raise RuntimeError(f"torch.profiler saw no launch of {[n for n in names if not durs[n]]}")
+        events = device_events(prof)
+        for n in names:
+            durs = [ms for name, ms in events if n in name]
+            if durs and seen[n] is None:
+                seen[n] = statistics.median(durs)
+        if all(v is not None for v in seen.values()):
+            break
+    return seen
 
 
 def _leaf(t: torch.Tensor) -> torch.Tensor:
@@ -1946,113 +1981,248 @@ def _torch_lstm_layer_loss(leaves, data, d: int, towers: int):
     return loss
 
 
-def _check_lstm_training(rec: dict) -> None:
-    """The training-mode forward and the backward kernel, through the autograd
-    Function of ops.lstm_cuda.lstm_layer_sequence."""
-    n = 48
-    fwd_errs, same_as_inference, grad_errs, grad_rel = [], [], [], []
-    for d in (35, 48):
-        for B in (FULL_B, 37, 5):
-            for towers, masked, need_dx in ((2, True, True), (2, False, True), (2, True, False),
-                                            (1, True, True), (1, False, False)):
-                leaves, run, _ = _layer_problem(B, d, towers, masked, 1, seed=B + d + towers,
-                                                need_dx=need_dx)
-                plain = {k: _leaf(v) for k, v in leaves.items()}
-                before = (lstm_cuda.train_launches, lstm_cuda.bwd_launches)
-                got, loss = run(lstm_cuda.lstm_layer_sequence, leaves)
-                kept = got[0][0].grad_fn.gates   # activated gates; the backward leaves dgates here
-                loss.backward()
-                torch.cuda.synchronize()
-                if (lstm_cuda.train_launches, lstm_cuda.bwd_launches) != (before[0] + 1,
-                                                                          before[1] + 1):
-                    raise RuntimeError("lstm layer: expected one training-mode forward and one "
-                                       "backward launch")
-                with torch.no_grad():   # the inference kernels on the same inputs
-                    inference, _ = run(lstm_cuda.lstm_layer_sequence, leaves)
-                probes = [torch.zeros(B, 4 * n, device=DEVICE, requires_grad=True)
-                          for _ in range(towers)]
-                want, loss_plain = run(lstm_cuda.lstm_layer_sequence_plain, plain, probes)
-                loss_plain.backward()
-                flat = lambda out: [t for pair in out for t in pair]  # noqa: E731
-                for g_, i_, w_ in zip(flat(got), flat(inference), flat(want)):
-                    torch.testing.assert_close(g_, i_, atol=1e-6, rtol=0)
-                    torch.testing.assert_close(g_, w_, atol=1e-5, rtol=0)
-                same_as_inference.append(all(torch.equal(a, b)
-                                             for a, b in zip(flat(got), flat(inference))))
-                fwd_errs.append(max_err(flat(got), flat(want)))
-                # dx, dc and dh (through the strided state), dWx, dWh, db, and dgates row by row
-                pairs = [(k, leaves[k].grad, plain[k].grad) for k in leaves]
-                pairs += [(f"dgates{i}", kept[i].sum(0), probes[i].grad) for i in range(towers)]
-                case_errs = []
-                for k, a, b in pairs:
-                    scale = float(b.abs().max())
-                    torch.testing.assert_close(a, b, atol=1e-5 + GRAD_RTOL * scale, rtol=0,
-                                               msg=lambda m, k=k: f"{k}: {m}")
-                    err = float((a - b).abs().max())
-                    grad_rel.append(err / max(scale, 1e-30))
-                    if k in ("xs", "state") or k.startswith("dgates"):
-                        case_errs.append(err)
-                grad_errs += case_errs
-                log(f"[3] lstm layer B={B} d={d} towers={towers} masked={masked} dx={need_dx}: "
-                    f"training-mode forward max |err| {fwd_errs[-1]:.3g} vs plain (bitwise equal "
-                    f"to the inference kernel: {same_as_inference[-1]}); backward dx/dc/dh/dgates "
-                    f"max |err| {max(case_errs):.3g}")
+def _lstm_library_ms(leaves, data, d: int, need_dx: bool) -> dict:
+    """The yardstick of the sequence kernels: torch.nn.LSTM (cuDNN, one layer,
+    hidden 48, the gate columns permuted to PyTorch's [i, f, g, o], TF32 off)
+    once a tower over _layer_problem's unmasked sequence, forward and autograd's
+    backward (which also computes the weight gradients). It has no reset
+    within a sequence, so it runs the unmasked case; a yardstick only, the
+    port never calls it."""
+    n, xs_all, weights = 48, leaves.get("xs", data["xs_all"]), data["weights"]
+    perm = torch.cat([torch.arange(0, 2 * n), torch.arange(3 * n, 4 * n),
+                      torch.arange(2 * n, 3 * n)]).to(DEVICE)
+    allow = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        nets, inputs = [], []
+        for i in range(2):
+            net = torch.nn.LSTM(d, n).to(DEVICE)
+            with torch.no_grad():
+                net.weight_ih_l0.copy_(leaves[f"wx{i}"][:, perm].T)
+                net.weight_hh_l0.copy_(leaves[f"wh{i}"][:, perm].T)
+                net.bias_ih_l0.copy_(leaves[f"b{i}"][perm])
+                net.bias_hh_l0.zero_()
+            h0 = leaves["state"][:, 2 * n * i + n:2 * n * (i + 1)].detach()[None].contiguous()
+            c0 = leaves["state"][:, 2 * n * i:2 * n * i + n].detach()[None].contiguous()
+            nets.append(net)
+            inputs.append((_leaf(xs_all[:, :, i * d:(i + 1) * d].detach().contiguous()), (h0, c0)))
 
-    # times at the main path's two launches: layer 1 (d = 35, no dx) and layer 2 (d = 48, dx)
-    T, B = BWD_TIMING_STEPS, FULL_B
+        def forward():
+            return [net(x, hc)[0] for net, (x, hc) in zip(nets, inputs)]
+        hs = forward()
+        loss = sum((h * w[1]).sum() for h, w in zip(hs, weights))
+        params = [t for net, (x, _) in zip(nets, inputs)
+                  for t in ((x,) if need_dx else ()) + tuple(net.parameters())]
+        # device time by the profiler, or CUDA events around a call where no window of the
+        # profiler's held every event of its calls
+        fwd = timings(forward, reps=3)
+        bwd = timings(lambda: torch.autograd.grad(loss, params, retain_graph=True), reps=3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow
+    return {"fwd_ms": fwd["ms"], "bwd_ms": bwd["ms"], "fwd_source": fwd["source"],
+            "bwd_source": bwd["source"], "h_seq": [h.detach() for h in hs]}
+
+
+def _check_lstm_training(rec: dict) -> None:
+    """The two sequence kernels (the forward that keeps the gates, and the
+    backward), one launch a layer each way, through the autograd Function of
+    ops.lstm_cuda.lstm_layer_sequence: against autograd of the plain cells at
+    T = 1 over _check_lstm's batches and one and two towers, and at T = 4;
+    then at the epochs' T = 750, B = 1024 for the main path's two layers (d =
+    35 without dx, d = 48 with it) against the kernels' plain versions
+    (ops.lstm_cuda.lstm_layer_forward_plain, lstm_layer_backward_plain,
+    layer_weight_grads: every step's gates and gate gradients), and timed
+    there beside them, torch.nn.LSTM and the bound counted once a sequence."""
+    n, t0 = 48, time.perf_counter()
+    fwd_errs, same_as_inference, grad_errs, grad_rel = [], [], [], []
+    flat = lambda out: [t for pair in out for t in pair]  # noqa: E731
+
+    def held(k, a, b):   # a gradient against the plain one, within GRAD_RTOL of its scale
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, atol=1e-5 + GRAD_RTOL * scale, rtol=0,
+                                   msg=lambda m: f"{k}: {m}")
+        err = float((a - b).abs().max())
+        grad_rel.append(err / max(scale, 1e-30))
+        return err
+
+    def launched_once(before, what):
+        torch.cuda.synchronize()
+        if (lstm_cuda.train_launches, lstm_cuda.bwd_launches) != (before[0] + 1, before[1] + 1):
+            raise RuntimeError(f"{what}: expected one sequence-forward and one sequence-backward "
+                               f"launch")
+
+    configs = ((2, True, True), (2, False, True), (2, True, False), (1, True, True),
+               (1, False, False))
+    cases = [(B, d, 1, *c) for d in (35, 48) for B in (FULL_B, 37, 5) for c in configs]
+    cases += [(B, d, 4, *c) for d in (35, 48) for B in (FULL_B, 37, 5) for c in configs[::4]]
+    for B, d, T, towers, masked, need_dx in cases:
+        leaves, run, _ = _layer_problem(B, d, towers, masked, T, seed=B + d + towers + T,
+                                        need_dx=need_dx)
+        plain = {k: _leaf(v) for k, v in leaves.items()}
+        before = (lstm_cuda.train_launches, lstm_cuda.bwd_launches)
+        got, loss = run(lstm_cuda.lstm_layer_sequence, leaves)
+        kept = got[0][0].grad_fn.gates   # activated gates; the backward leaves dgates here
+        loss.backward()
+        launched_once(before, f"lstm layer T={T}")
+        with torch.no_grad():   # the inference kernels on the same inputs, step by step
+            inference, _ = run(lstm_cuda.lstm_layer_sequence, leaves)
+        probes = [torch.zeros(B, 4 * n, device=DEVICE, requires_grad=True)
+                  for _ in range(towers)]
+        want, loss_plain = run(lstm_cuda.lstm_layer_sequence_plain, plain, probes)
+        loss_plain.backward()
+        for g_, i_, w_ in zip(flat(got), flat(inference), flat(want)):
+            torch.testing.assert_close(g_, i_, atol=1e-6, rtol=0)
+            torch.testing.assert_close(g_, w_, atol=1e-5, rtol=0)
+        same_as_inference.append(all(torch.equal(a, b)
+                                     for a, b in zip(flat(got), flat(inference))))
+        fwd_errs.append(max_err(flat(got), flat(want)))
+        # dx, dc and dh (through the strided state), dWx, dWh, db, and dgates row by row
+        errs = {k: held(k, leaves[k].grad, plain[k].grad) for k in leaves}
+        errs.update({f"dgates{i}": held(f"dgates{i}", kept[i].sum(0), probes[i].grad)
+                     for i in range(towers)})
+        case_errs = [e for k, e in errs.items() if k in ("xs", "state") or k.startswith("dgates")]
+        grad_errs += case_errs
+        if B == FULL_B:
+            log(f"[3] lstm layer T={T} B={B} d={d} towers={towers} masked={masked} dx={need_dx}: "
+                f"sequence forward max |err| {fwd_errs[-1]:.3g} vs plain (bitwise equal to the "
+                f"inference kernel: {same_as_inference[-1]}); backward dx/dc/dh/dgates max "
+                f"|err| {max(case_errs):.3g}")
+    log(f"[3] lstm layer: {len(cases)} cases at T = 1 and 4 in {time.perf_counter() - t0:.1f} s")
+
+    # the epochs' shape, both layers: held to the plain versions, then timed
+    T, B = TRAIN_STEPS, FULL_B
     per_d = {}
     for d, need_dx in ((35, False), (48, True)):
+        t1 = time.perf_counter()
         leaves, run, data = _layer_problem(B, d, 2, True, T, seed=d, need_dx=need_dx,
                                            loss_on_c=False)
+        before = (lstm_cuda.train_launches, lstm_cuda.bwd_launches)
+        got, loss = run(lstm_cuda.lstm_layer_sequence, leaves)
+        kept = got[0][0].grad_fn.gates
+        loss.backward()
+        launched_once(before, f"lstm layer T={T}")
+        args = {}
+
+        def grab(ws, xs, mask, states):
+            args.update(ws=ws, xs=xs, mask=mask, states=states,
+                        fwd=lstm_cuda.lstm_layer_forward_plain(ws, xs, mask, states))
+            return [(c, h) for c, h, _ in args["fwd"]]
+        ups = [(None, wl) for _, wl in data["weights"]]   # the loss reaches h' alone
+        plain_bwd = lambda: lstm_cuda.lstm_layer_backward_plain(  # noqa: E731
+            args["ws"], args["xs"], args["mask"], args["states"], args["fwd"], ups, need_dx)
+        with torch.no_grad():   # the plain loops are host-bound: CUDA events around each call
+            inference, _ = run(lstm_cuda.lstm_layer_sequence, leaves)
+            plain_fwd_ms = _events_ms(lambda: run(grab, {k: v.detach() for k, v in leaves.items()}))
+            plain_bwd_ms, bwd = _events_ms(plain_bwd, keep=True)
+            for g_, i_, (c, h, _) in zip(got, inference, args["fwd"]):
+                for a_, b_, w_ in zip(g_, i_, (c, h)):
+                    torch.testing.assert_close(a_, w_, atol=1e-5, rtol=0)
+                same_as_inference.append(all(torch.equal(a_, b_) for a_, b_ in zip(g_, i_)))
+                fwd_errs.append(max_err(g_, (c, h)))
+            case_errs = []
+            for i, ((dg, dx, dc0, dh0), x, (_, h0), (_, h_seq, _)) in enumerate(zip(
+                    bwd, args["xs"], args["states"], args["fwd"])):
+                case_errs.append(held(f"dgates{i}", kept[i], dg))
+                case_errs.append(held(f"dc{i}", leaves["state"].grad[:, 2 * n * i:2 * n * i + n],
+                                      dc0))
+                case_errs.append(held(f"dh{i}", leaves["state"].grad[:, 2 * n * i + n:
+                                                                       2 * n * (i + 1)], dh0))
+                if need_dx:
+                    case_errs.append(held(f"dx{i}", leaves["xs"].grad[:, :, i * d:(i + 1) * d],
+                                          dx))
+                for k, w_ in zip(("wx", "wh", "b"), lstm_cuda.layer_weight_grads(
+                        x, args["mask"], h0, h_seq, dg)):
+                    held(f"d{k}{i}", leaves[f"{k}{i}"].grad, w_)
+            grad_errs += case_errs
+        log(f"[3] lstm layer T={T} B={B} d={d} towers=2 masked=True dx={need_dx}: sequence forward "
+            f"max |err| {fwd_errs[-1]:.3g} vs its plain version (bitwise equal to the inference "
+            f"kernel: {same_as_inference[-1]}); backward: every step's dgates, dx, dc, dh max "
+            f"|err| {max(case_errs):.3g}, dWx, dWh, db within {GRAD_RTOL:g} of their scale")
+        del got, loss, kept, inference, bwd
+        for v in leaves.values():
+            v.grad = None
         med = kernel_medians(lambda: run(lstm_cuda.lstm_layer_sequence, leaves)[1].backward(),
-                             REPS, ("lstm_cell_train_kernel", "lstm_cell_bwd_kernel"))
-        plain = {k: _leaf(v) for k, v in leaves.items()}
-        _, loss_plain = run(lstm_cuda.lstm_layer_sequence_plain, plain)
-        plain_bwd = device_ms(lambda: torch.autograd.grad(loss_plain, list(plain.values()),
-                                                          retain_graph=True), reps=5)
-        # the yardstick: autograd's backward of torch.lstm_cell, once a tower and step
-        lib = {k: _leaf(v) for k, v in leaves.items()}
-        loss_lib = _torch_lstm_layer_loss(lib, data, d, 2)
-        torch.testing.assert_close(loss_lib, loss_plain, atol=0, rtol=1e-5)
-        lib_bwd = device_ms(lambda: torch.autograd.grad(loss_lib, list(lib.values()),
-                                                        retain_graph=True), reps=5)
-        if plain_bwd is None or lib_bwd is None:
-            raise RuntimeError("torch.profiler saw no device time in the plain backward")
+                             SEQ_REPS, ("lstm_seq_train_kernel", "lstm_seq_bwd_kernel"))
+        source = {k: "profiler" for k in ("train", "bwd")}
+        if med["lstm_seq_train_kernel"] is None:   # CUDA events around the forward call
+            med["lstm_seq_train_kernel"] = statistics.median(
+                _events_ms(lambda: run(lstm_cuda.lstm_layer_sequence, leaves))
+                for _ in range(SEQ_REPS))
+            source["train"] = "events around the wrapper's forward call"
+
+        def backward_ms():
+            loss = run(lstm_cuda.lstm_layer_sequence, leaves)[1]
+            torch.cuda.synchronize()
+            return _events_ms(loss.backward)
+        if med["lstm_seq_bwd_kernel"] is None:   # CUDA events around autograd's backward call
+            med["lstm_seq_bwd_kernel"] = statistics.median(backward_ms() for _ in range(SEQ_REPS))
+            source["bwd"] = "events around autograd's backward call, weight gradients included"
+        # the yardstick on the same layer without resets, held to the plain cells first
+        lib_leaves, lib_run, lib_data = _layer_problem(B, d, 2, False, T, seed=d + 1,
+                                                       need_dx=need_dx, loss_on_c=False)
+        lib = _lstm_library_ms(lib_leaves, lib_data, d, need_dx)
+        with torch.no_grad():
+            lib_want, _ = lib_run(lstm_cuda.lstm_layer_sequence_plain, lib_leaves)
+        # cuDNN sums in its own order, and 750 steps of the recurrence carry it
+        torch.testing.assert_close(lib["h_seq"], [h for _, h in lib_want], atol=1e-4, rtol=0)
+        del lib_leaves, lib_want
         dx_cols = d if need_dx else 0
-        # a step of BPTT, both towers: gates read and dgates written, c, c', three incoming
-        # gradients, the mask and [Wh^T | Wx^T] read, dc, dh and dx written
-        bwd_bytes = 2 * 4 * (B * (8 * n + 7 * n + dx_cols) + 4 * n * (n + dx_cols)) + 4 * B
-        bwd_ops = 2 * (2 * B * 4 * n * (n + dx_cols) + 29 * B * n)   # products; 29 a gate tail
-        fwd = rec["lstm_cell"]["per_width"][d]
-        train_bytes = fwd["bytes"] + 2 * 4 * B * 4 * n   # the forward's, and the gates kept
+        cols = 2 if need_dx else 1
+        # once a sequence, both towers: x, the initial state, [Wx; Wh] and b and the mask read,
+        # c_seq, h_seq and the gates written; the operations: the pair's a step, T times
+        train_bytes = 4 * (2 * (T * B * d + 2 * B * n + (d + n + 1) * 4 * n + T * B * 6 * n) + T * B)
+        train_ops = T * rec["lstm_cell"]["per_width"][d]["ops"]
+        # the gates read and dgates written, c_seq, the initial c, the gradient from above
+        # (h' only) and the mask read, [Wh^T, Wx^T] read once, dx and the initial state's
+        # gradients written; the products and 29 operations a gate tail, T times
+        bwd_bytes = 4 * (2 * (T * B * (8 * n + n + n + dx_cols) + B * n + 4 * n * n * cols
+                              + 2 * B * n) + T * B)
+        bwd_ops = 2 * T * (2 * B * 4 * n * (n + dx_cols) + 29 * B * n)
         per_d[d] = dict(
-            bwd_ms=med["lstm_cell_bwd_kernel"], train_ms=med["lstm_cell_train_kernel"],
-            bwd_plain_ms=plain_bwd / T, bwd_library_ms=lib_bwd / T,
-            bwd_bound=bound_ms(bwd_bytes, bwd_ops), bwd_bytes=bwd_bytes, bwd_ops=bwd_ops,
-            train_bound=bound_ms(train_bytes, fwd["ops"]), train_bytes=train_bytes,
-            train_ops=fwd["ops"], dx=need_dx)
+            train_ms=med["lstm_seq_train_kernel"], bwd_ms=med["lstm_seq_bwd_kernel"],
+            train_plain_ms=plain_fwd_ms, bwd_plain_ms=plain_bwd_ms,
+            train_library_ms=lib["fwd_ms"], bwd_library_ms=lib["bwd_ms"],
+            train_bound=bound_ms(train_bytes, train_ops), train_bytes=train_bytes,
+            train_ops=train_ops, bwd_bound=bound_ms(bwd_bytes, bwd_ops), bwd_bytes=bwd_bytes,
+            bwd_ops=bwd_ops, dx=need_dx, T=T,
+            train_ptxas=ptxas_of("lstm_cell", "lstm_seq_train_kernel"),
+            bwd_ptxas=ptxas_of("lstm_cell", f"ELi{cols}EEEvNS_10SeqBwdArgs"),   # <kR, kG, cols>
+            train_smem_bytes=lstm_cuda.seq_smem_bytes(False, d, n),
+            bwd_smem_bytes=lstm_cuda.seq_smem_bytes(True, dx_cols, n),
+            train_prev_ms=T * PREV_SEQ_STEP_MS["train"][d],
+            bwd_prev_ms=T * PREV_SEQ_STEP_MS["bwd"][d],
+            train_time_source={"kernel": source["train"], "plain": "events",
+                               "library": lib["fwd_source"]},
+            bwd_time_source={"kernel": source["bwd"], "plain": "events",
+                             "library": lib["bwd_source"]})
         p = per_d[d]
-        log(f"[3] lstm_cell_bwd pair B={B} d={d} dx={need_dx}: kernel {p['bwd_ms']:.4f} ms on the "
-            f"device (profiler, median of {REPS * T} launches), autograd backward of the plain "
-            f"pair {p['bwd_plain_ms']:.4f} ms a step, of torch.lstm_cell once a tower "
-            f"{p['bwd_library_ms']:.4f} ms a step, bound {p['bwd_bound'][0]:.5f} ms "
-            f"({p['bwd_bound'][1]}: {bwd_bytes} B, {bwd_ops} ops)")
-        log(f"[3] lstm_cell_train pair B={B} d={d}: kernel {p['train_ms']:.4f} ms on the device "
-            f"(the inference pair launch: {fwd['ms']:.4f} ms), bound {p['train_bound'][0]:.5f} ms "
-            f"({p['train_bound'][1]}: {train_bytes} B, {fwd['ops']} ops)")
+        for k, what in (("train", "forward"), ("bwd", "backward")):
+            log(f"[3] lstm_seq_{k} T={T} B={B} d={d} dx={need_dx}: kernel {p[f'{k}_ms']:.4f} ms a "
+                f"sequence on the device ({p[f'{k}_time_source']['kernel']}, median of "
+                f"{SEQ_REPS}), "
+                f"{p[f'{k}_ms'] / T * 1e3:.3f} us a step; the per-step kernel it replaces x{T} "
+                f"{p[f'{k}_prev_ms']:.3f} ms; plain {what} {p[f'{k}_plain_ms']:.2f} ms a call "
+                f"(events); torch.nn.LSTM {what} (cuDNN, no reset, twice) "
+                f"{p[f'{k}_library_ms']:.4f} ms ({p[f'{k}_time_source']['library']}); "
+                f"bound {p[f'{k}_bound'][0]:.4f} ms "
+                f"({p[f'{k}_bound'][1]}: {p[f'{k}_bytes']} B, {p[f'{k}_ops']} ops), "
+                f"{p[f'{k}_bound'][0] / p[f'{k}_ms']:.1%} of it; ptxas {p[f'{k}_ptxas']}, "
+                f"{p[f'{k}_smem_bytes']} B dynamic shared memory")
+        log(f"[3] lstm layer T={T} d={d}: {time.perf_counter() - t1:.1f} s")
+        del leaves, run, data, args
     # one record an entry the training path launches, over the two layers' launch shapes
     def shape(d):
         return f"layer {1 if d == 35 else 2}: d={d}, {'dx' if per_d[d]['dx'] else 'no dx'}"
-    fwd = rec["lstm_cell"]["per_width"]
-    rec["lstm_cell_train"] = dict(entry_record({shape(d): dict(
-        ms=p["train_ms"], plain_ms=fwd[d]["plain_ms"], bound_ms=p["train_bound"][0],
-        bound_by=p["train_bound"][1], library_ms=fwd[d]["library_ms"]) for d, p in per_d.items()}),
-        max_abs_err=max(fwd_errs), bitwise_equal_to_inference=all(same_as_inference),
-        per_width=per_d)
-    rec["lstm_cell_bwd"] = dict(entry_record({shape(d): dict(
-        ms=p["bwd_ms"], plain_ms=p["bwd_plain_ms"], bound_ms=p["bwd_bound"][0],
-        bound_by=p["bwd_bound"][1], library_ms=p["bwd_library_ms"]) for d, p in per_d.items()}),
-        max_abs_err=max(grad_errs), max_rel_err=max(grad_rel), per_width=per_d)
+    for k in ("train", "bwd"):
+        rec[f"lstm_seq_{k}"] = dict(entry_record({shape(d): dict(
+            ms=p[f"{k}_ms"], ms_a_step=p[f"{k}_ms"] / T, plain_ms=p[f"{k}_plain_ms"],
+            bound_ms=p[f"{k}_bound"][0], bound_by=p[f"{k}_bound"][1],
+            library_ms=p[f"{k}_library_ms"], time_source=p[f"{k}_time_source"],
+            ptxas=p[f"{k}_ptxas"], smem_bytes=p[f"{k}_smem_bytes"])
+            for d, p in per_d.items()}), per_width=per_d)
+    rec["lstm_seq_train"].update(max_abs_err=max(fwd_errs),
+                                 bitwise_equal_to_inference=all(same_as_inference))
+    rec["lstm_seq_bwd"].update(max_abs_err=max(grad_errs), max_rel_err=max(grad_rel))
 
 
 def _analytic_inputs(B: int, seed: int):
@@ -2140,14 +2310,14 @@ def _check_phys_analytic(rec: dict) -> None:
 
 
 def phase_kernels() -> dict:
-    rec = {"phys_substep": {}, "lstm_cell": {}}
-    _check_phys(rec)
-    _check_phys_terrain(rec)
-    _check_phys_analytic(rec)
-    _check_phys_mpc(rec)
-    _check_lstm(rec)
-    _check_lstm_rows(rec)
-    _check_lstm_training(rec)
+    rec = {"phys_substep": {}, "lstm_cell": {}, "seconds_by_check": {}}
+    for check in (_check_phys, _check_phys_terrain, _check_phys_analytic, _check_phys_mpc,
+                  _check_lstm, _check_lstm_rows, _check_lstm_training):
+        t0 = time.perf_counter()
+        check(rec)
+        rec["seconds_by_check"][check.__name__] = time.perf_counter() - t0
+    log("[3] seconds by check: " + ", ".join(f"{k.removeprefix('_check_')} {v:.1f}"
+                                             for k, v in rec["seconds_by_check"].items()))
     return rec
 
 
@@ -2165,7 +2335,7 @@ def read_counts() -> dict:
         torch.cuda.synchronize()
     return {"phys_substep": phys_cuda.launches, "phys_analytic": phys_cuda.analytic_launches,
             "lstm_cell": lstm_cuda.launches,
-            "lstm_cell_train": lstm_cuda.train_launches, "lstm_cell_bwd": lstm_cuda.bwd_launches,
+            "lstm_seq_train": lstm_cuda.train_launches, "lstm_seq_bwd": lstm_cuda.bwd_launches,
             "lstm_cell_rows": lstm_cuda.rows_launches}
 
 
@@ -2181,7 +2351,7 @@ def rollout_counts(steps: int) -> dict:
     """What an evaluation rollout of ``steps`` control steps launches: the
     physics and the inference LSTM kernels, and no training kernel."""
     return {"phys_substep": PHYS_LAUNCHES_PER_STEP * steps,
-            "lstm_cell": LSTM_LAUNCHES_PER_STEP * steps, "lstm_cell_train": 0, "lstm_cell_bwd": 0}
+            "lstm_cell": LSTM_LAUNCHES_PER_STEP * steps, "lstm_seq_train": 0, "lstm_seq_bwd": 0}
 
 
 def phase_serving() -> dict:
@@ -2254,13 +2424,10 @@ def _kernel_device_ms(prof) -> dict:
     two sources' kernels by name (phys_substep_kernel and
     phys_control_step_kernel; lstm_cell_kernel and lstm_cell_pair_kernel)."""
     out = {"phys_substep": 0.0, "lstm_cell": 0.0, "all": 0.0}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = e.time_range.elapsed_us() / 1e3
+    for name, ms in device_events(prof):
         out["all"] += ms
         for k, prefix in (("phys_substep", "phys_"), ("lstm_cell", "lstm_cell_")):
-            if prefix in e.name and "_kernel" in e.name:
+            if prefix in name and "_kernel" in name:
                 out[k] += ms
     return out
 
@@ -2404,8 +2571,8 @@ def phase_bptt() -> dict:
     loss_k, aux_k, grads_k = _loss_and_grads(params, batch, ppo_cfg)
     kernel_s = time.perf_counter() - t0
     check_counts(read_counts(),
-                       {"phys_substep": 0, "lstm_cell": 0, "lstm_cell_train": 2 * BPTT_STEPS,
-                        "lstm_cell_bwd": 2 * BPTT_STEPS}, "6")
+                       {"phys_substep": 0, "lstm_cell": 0, "lstm_seq_train": LSTM_LAYERS,
+                        "lstm_seq_bwd": LSTM_LAYERS}, "6")
     reset_counts()
     with plain_lstm_layers():
         _loss_and_grads(params, batch, ppo_cfg)
@@ -2413,7 +2580,7 @@ def phase_bptt() -> dict:
         loss_p, aux_p, grads_p = _loss_and_grads(params, batch, ppo_cfg)
         plain_s = time.perf_counter() - t0
     check_counts(read_counts(), dict.fromkeys(
-        ("phys_substep", "lstm_cell", "lstm_cell_train", "lstm_cell_bwd"), 0), "6 plain")
+        ("phys_substep", "lstm_cell", "lstm_seq_train", "lstm_seq_bwd"), 0), "6 plain")
     torch.testing.assert_close(loss_k, loss_p, atol=1e-5, rtol=0)
     for k in aux_p:
         torch.testing.assert_close(aux_k[k], aux_p[k], atol=1e-5, rtol=0)
@@ -2454,12 +2621,12 @@ def phase_training() -> dict:
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
     rollout_steps = TRAIN_UPDATES * TRAIN_STEPS
-    bptt_steps = TRAIN_UPDATES * TRAIN_EPOCHS * TRAIN_STEPS
+    sequences = TRAIN_UPDATES * TRAIN_EPOCHS   # one minibatch an epoch
     check_counts(counts, {
         "phys_substep": PHYS_LAUNCHES_PER_STEP * rollout_steps,
         # the rollout's steps and one bootstrap forward an update
         "lstm_cell": LSTM_LAUNCHES_PER_STEP * (rollout_steps + TRAIN_UPDATES),
-        "lstm_cell_train": 2 * bptt_steps, "lstm_cell_bwd": 2 * bptt_steps}, "7")
+        "lstm_seq_train": LSTM_LAYERS * sequences, "lstm_seq_bwd": LSTM_LAYERS * sequences}, "7")
 
     rows = metrics_io.read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
     if len(rows) != TRAIN_UPDATES:
@@ -2535,31 +2702,41 @@ def phase_training() -> dict:
     with OpCounter() as oc:
         ppo.train_minibatch(ts.params, ts.opt_state, batch, ppo_cfg)
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        ppo.train_minibatch(ts.params, ts.opt_state, batch, ppo_cfg)
-        torch.cuda.synchronize()
-        epoch_ms = (time.perf_counter() - t1) * 1e3
-    dev = _kernel_device_ms(prof)
-    by_kernel = {"lstm_cell_train": 0.0, "lstm_cell_bwd": 0.0}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    # in this long-lived process the profiler drops the sequence forward's events from the
+    # epoch's window, with or without the host's activity (a fresh process keeps them): a
+    # window that lacks a kernel is taken again, and a kernel never seen is not measured
+    for _ in range(3):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            ppo.train_minibatch(ts.params, ts.opt_state, batch, ppo_cfg)
+            torch.cuda.synchronize()
+            epoch_ms = (time.perf_counter() - t1) * 1e3
+        dev = _kernel_device_ms(prof)
+        by_kernel = {"lstm_seq_train": 0.0, "lstm_seq_bwd": 0.0}
+        for name, ms in device_events(prof):
             for k in by_kernel:
-                if f"{k}_kernel" in e.name:
-                    by_kernel[k] += e.time_range.elapsed_us() / 1e3
-    busy = dev["all"] / epoch_ms if dev["all"] > 0 else None
+                if f"{k}_kernel" in name:
+                    by_kernel[k] += ms
+        if all(by_kernel.values()):
+            break
+    by_kernel = {k: v or None for k, v in by_kernel.items()}
+    # a window that lacks a kernel's events lacks device time: its total is not measured
+    device_ms = dev["all"] if all(by_kernel.values()) and dev["all"] > 0 else None
+    busy = None if device_ms is None else device_ms / epoch_ms
+    other = None if device_ms is None else device_ms - sum(by_kernel.values())
     log(f"[7] one epoch (loss, BPTT over {TRAIN_STEPS} steps, clip, Adam): {epoch_ms:.1f} ms under "
         f"the profiler, {oc.calls} PyTorch ops; device busy "
-        f"{'not measured' if busy is None else f'{busy:.3f}'} of it: training-mode forward "
-        f"{by_kernel['lstm_cell_train']:.1f} ms, backward kernel {by_kernel['lstm_cell_bwd']:.1f} "
-        f"ms, other device work {dev['all'] - sum(by_kernel.values()):.1f} ms")
+        f"{'not measured' if busy is None else f'{busy:.3f}'} of it: "
+        + ", ".join(f"{k} {'not measured' if v is None else f'{v:.1f} ms'}"
+                    for k, v in by_kernel.items())
+        + f", other device work {'not measured' if other is None else f'{other:.1f} ms'}")
     return {"run_dir": os.path.relpath(run_dir, ROOT), "wall_s": wall, "updates": rows,
             "launches": counts, "peak_memory_bytes": peak, "largest_move": max(moved.values()),
             "csv_err": csv_err, "fresh_policy_reward_per_step": fresh_reward,
             "rollout_torch_ops_per_step": rollout_ops_per_step,
             "epoch_ms_profiled": epoch_ms, "torch_ops_per_epoch": oc.calls,
-            "epoch_device_busy": busy, "epoch_device_ms": dev["all"],
+            "epoch_device_busy": busy, "epoch_device_ms": device_ms,
             "epoch_kernel_ms": by_kernel, "dashboard_png_bytes": dash_bytes,
             "dashboard": "rendered" if HAS_MATPLOTLIB else "not rendered: no matplotlib"}
 
@@ -2605,7 +2782,7 @@ def phase_batched_solve() -> dict:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - before
     check_counts(read_counts(), dict.fromkeys(
-        ("phys_substep", "lstm_cell", "lstm_cell_train", "lstm_cell_bwd"), 0), "8")
+        ("phys_substep", "lstm_cell", "lstm_seq_train", "lstm_seq_bwd"), 0), "8")
     for name in ("forces", "xs", "us", "cost"):
         if not torch.isfinite(getattr(res, name)).all():
             raise RuntimeError(f"non-finite {name} in the batched solve")
@@ -2725,7 +2902,7 @@ def phase_mpc() -> dict:
         wall = time.perf_counter() - t0
     counts = read_counts()
     check_counts(counts, {"phys_substep": PHYS_LAUNCHES_PER_STEP * MPC_STEPS * groups,
-                          "lstm_cell": 0, "lstm_cell_train": 0, "lstm_cell_bwd": 0}, "9")
+                          "lstm_cell": 0, "lstm_seq_train": 0, "lstm_seq_bwd": 0}, "9")
     failed = []
     for r in res["rows"]:
         v_ref, falls_ref = JAX_MPC_V_FALLS[r["command"]]
@@ -2835,11 +3012,11 @@ def phase_terrain_training() -> dict:
     wall = time.perf_counter() - t0
     counts = read_counts()
     rollout_steps = TERRAIN_TRAIN_UPDATES * TRAIN_STEPS
-    bptt_steps = TERRAIN_TRAIN_UPDATES * TRAIN_EPOCHS * TRAIN_STEPS
+    sequences = TERRAIN_TRAIN_UPDATES * TRAIN_EPOCHS
     check_counts(counts, {
         "phys_substep": PHYS_LAUNCHES_PER_STEP * rollout_steps,
         "lstm_cell": LSTM_LAUNCHES_PER_STEP * (rollout_steps + TERRAIN_TRAIN_UPDATES),
-        "lstm_cell_train": 2 * bptt_steps, "lstm_cell_bwd": 2 * bptt_steps}, "11")
+        "lstm_seq_train": LSTM_LAYERS * sequences, "lstm_seq_bwd": LSTM_LAYERS * sequences}, "11")
     rows = metrics_io.read_jsonl(os.path.join(run_dir, "metrics.jsonl"))
     if len(rows) != TERRAIN_TRAIN_UPDATES:
         raise RuntimeError(f"metrics.jsonl has {len(rows)} rows, expected {TERRAIN_TRAIN_UPDATES}")
@@ -2983,7 +3160,7 @@ def _wb_measure(name: str, run, launches_per_solve: int) -> dict:
     peak = torch.cuda.max_memory_allocated() - before
     counts = read_counts()
     check_counts(counts, {"phys_substep": launches_per_solve, "lstm_cell": 0,
-                          "lstm_cell_train": 0, "lstm_cell_bwd": 0}, f"13 {name}")
+                          "lstm_seq_train": 0, "lstm_seq_bwd": 0}, f"13 {name}")
     for f in ("us", "xs", "cost", "cost_trace"):
         if not torch.isfinite(getattr(res, f)).all():
             raise RuntimeError(f"phase 13 {name}: non-finite {f}")
@@ -3150,7 +3327,7 @@ def phase_wholebody() -> dict:
                              "frozen_launches": frozen_launches, "fd_launches": fd_launches}
     out["launches"] = {"phys_substep": out["lanes_frozen"]["launches"]["phys_substep"]
                        + out["lanes_fd"]["launches"]["phys_substep"],
-                       "lstm_cell": 0, "lstm_cell_train": 0, "lstm_cell_bwd": 0,
+                       "lstm_cell": 0, "lstm_seq_train": 0, "lstm_seq_bwd": 0,
                        "lstm_cell_rows": 0}
     return out
 
@@ -3221,8 +3398,8 @@ def _loop_sites(d: dict) -> dict:
 def physics_only_counts(steps: int) -> dict:
     """What an MPC loop of ``steps`` control steps launches: the physics
     kernel once a step, no LSTM kernel."""
-    return {"phys_substep": PHYS_LAUNCHES_PER_STEP * steps, "lstm_cell": 0, "lstm_cell_train": 0,
-            "lstm_cell_bwd": 0}
+    return {"phys_substep": PHYS_LAUNCHES_PER_STEP * steps, "lstm_cell": 0, "lstm_seq_train": 0,
+            "lstm_seq_bwd": 0}
 
 
 def phase_wb_fleet() -> dict:
@@ -3430,12 +3607,12 @@ def phase_wb_terrain() -> dict:
 
 # --- phase 15 -----------------------------------------------------------------
 
-def _no_physics_counts(lstm_pairs: int, train_steps: int = 0) -> dict:
+def _no_physics_counts(lstm_pairs: int, sequences: int = 0) -> dict:
     """What a path on the per-env step launches: no physics kernel, ``lstm_pairs``
-    inference launches, and 2 training-forward and 2 backward launches a step
-    of BPTT over ``train_steps`` steps."""
-    return {"phys_substep": 0, "lstm_cell": lstm_pairs, "lstm_cell_train": 2 * train_steps,
-            "lstm_cell_bwd": 2 * train_steps}
+    inference launches, and one sequence-forward and one sequence-backward
+    launch a layer for each of ``sequences`` BPTT sequences."""
+    return {"phys_substep": 0, "lstm_cell": lstm_pairs, "lstm_seq_train": LSTM_LAYERS * sequences,
+            "lstm_seq_bwd": LSTM_LAYERS * sequences}
 
 
 def phase_perenv_eval(variant: str) -> dict:
@@ -3491,7 +3668,7 @@ def _trained_run(argv: list, updates: int, steps: int, tag: str) -> dict:
     wall = time.perf_counter() - t0
     counts = read_counts()
     check_counts(counts, _no_physics_counts(LSTM_LAUNCHES_PER_STEP * updates * (steps + 1),
-                                            updates * TRAIN_EPOCHS * steps), tag)
+                                            updates * TRAIN_EPOCHS), tag)
     cfg_txt = _config_txt(run_dir)
     if cfg_txt["use_lanes_physics"] != "False":
         raise RuntimeError(f"phase {tag}: cli.train chose the lanes path")
@@ -3572,7 +3749,7 @@ def phase_ppo3() -> tuple[dict, dict]:
     wall = time.perf_counter() - t0
     counts = read_counts()
     check_counts(counts, _no_physics_counts(LSTM_LAUNCHES_PER_STEP * (PPO3_STEPS + 1),
-                                            TRAIN_EPOCHS * PPO3_STEPS), "15d")
+                                            TRAIN_EPOCHS), "15d")
     moved = mio.policy_params_to_numpy(agent.params)
     if not (all(np.isfinite(v) for v in m.values())
             and all(np.abs(moved[k] - start[k]).max() > 0 for k in start)):
@@ -3751,9 +3928,7 @@ def phase_landscape() -> dict:
         landscape._landscape_batch(cfg, stacked, cmd, gen, LANDSCAPE_PROF_STEPS, DEVICE)
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3
-    rows_ms = sum(e.time_range.elapsed_us() / 1e3 for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and "lstm_cell_pair_rows_kernel" in e.name)
+    rows_ms = sum(ms for name, ms in device_events(prof) if "lstm_cell_pair_rows_kernel" in name)
     dev = _kernel_device_ms(prof)
     del stacked
     torch.cuda.synchronize()
@@ -4430,8 +4605,8 @@ def phase_distributed(training: dict, live: list) -> dict:
         "--distributed"]
     launches = {"phys_substep": PHYS_LAUNCHES_PER_STEP * TRAIN_STEPS,
                 "lstm_cell": LSTM_LAUNCHES_PER_STEP * (TRAIN_STEPS + 1),
-                "lstm_cell_train": 2 * TRAIN_EPOCHS * TRAIN_STEPS,
-                "lstm_cell_bwd": 2 * TRAIN_EPOCHS * TRAIN_STEPS}
+                "lstm_seq_train": LSTM_LAYERS * TRAIN_EPOCHS,
+                "lstm_seq_bwd": LSTM_LAYERS * TRAIN_EPOCHS}
 
     t0 = time.perf_counter()
     (a, pa), = _run_ranks("a", {**spec, "backend": None, "train_args": argv(1)}, 1, live)
@@ -4520,7 +4695,7 @@ def _phase16() -> list:
 def _phase14() -> list:
     params = mio.load_bp5_csv(ARTIFACT, device=DEVICE)
     return [("14a", phase_wb_fleet), ("14b", phase_wb_track),
-            ("14c", lambda: phase_wb_parity(params)), ("14d", phase_wb_terrain)]
+            ("14c", lambda: phase_wb_parity(params))]
 
 
 def _phase15() -> list:
@@ -4537,12 +4712,12 @@ def _phases10to12() -> list:
 
 def worker(out_path: str, phases: list) -> int:
     """Run ``phases`` ((name, fn) pairs) and write their records to
-    ``out_path``. The main run starts one such process with phases 14, 15,
-    10-12, 16a, 16d and 17c (``--side-worker``) alongside phases 7, 8, 16b,
-    16c, 9, 13, 17a and 17b (host-bound loops of one Python thread each, the
-    card mostly idle), so the script stays inside its time limit; each path's launches are counted in this process, around
-    its own run. (Phase 15 in a third process slowed the others by a third:
-    PERF.md.)"""
+    ``out_path``. The main run starts one such process with phases 14a-c,
+    15, 10-12 and 16a (``--side-worker``) alongside phases 7, 8, 16b, 16c,
+    9, 13, 17a-c, 16d and 14d (host-bound loops of one Python thread each,
+    the card mostly idle), so the script stays inside its time limit; each path's
+    launches are counted in this process, around its own run. (Phase 15 in a
+    third process slowed the others by a third: PERF.md.)"""
     seconds, rec = {}, {}
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -4588,8 +4763,8 @@ class _Phase18:
 
 
 class _SideWorker:
-    """The second process of :func:`worker` (``--side-worker``, phases 14, 15,
-    10-12, 16a, 16d and 17c): started on entry, waited for by :meth:`result`, killed if the
+    """The second process of :func:`worker` (``--side-worker``, phases 14a-c,
+    15, 10-12 and 16a): started on entry, waited for by :meth:`result`, killed if the
     main run leaves before that."""
 
     def __enter__(self):
@@ -4617,7 +4792,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU")
     ap.add_argument("--out", default=None, help="also write all measurements to this JSON file")
     ap.add_argument("--side-worker", default=None, metavar="PATH",
-                    help="run only phases 14, 15, 10-12, 16a, 16d and 17c and write their "
+                    help="run only phases 14a-c, 15, 10-12 and 16a and write their "
                     "records to PATH (the main run starts this itself)")
     ap.add_argument("--perenv-worker", default=None, metavar="PATH",
                     help="run only phase 15 and write its records to PATH")
@@ -4640,8 +4815,7 @@ def main(argv=None) -> int:
         return 1
     if args.side_worker:
         return worker(args.side_worker, _phase14() + _phase15() + _phases10to12()
-                      + [("16a", phase_landscape), ("16d", phase_cli_modes),
-                         ("17c", phase_closures)])
+                      + [("16a", phase_landscape)])
     if args.perenv_worker:
         return worker(args.perenv_worker, _phase15())
     if args.phase16_worker:
@@ -4669,8 +4843,9 @@ def main(argv=None) -> int:
         "phys_substep": kern["phys_substep"]["ms"],
         "lstm_cell": statistics.mean(p["ms"] for p in kern["lstm_cell"]["per_launch"].values())})
     bptt = run("6", phase_bptt)
-    # phases 14, 15, 10-12, 16a, 16d and 17c beside 7-9, 16b, 16c, 13, 17a and 17b; phase
-    # 18's ranks beside 13, 17a and 17b
+    # phases 14a-c, 15, 10-12 and 16a beside 7-9, 16b, 16c, 13, 17a-c, 16d and 14d (the
+    # last three here, where the second process was the longer); phase 18's ranks beside
+    # 13, 17a and 17b
     with _SideWorker() as side_worker:
         training = run("7", phase_training)
         solve = run("8", phase_batched_solve)
@@ -4680,12 +4855,14 @@ def main(argv=None) -> int:
             wholebody = run("13", phase_wholebody)
             p17 = {"17a": run("17a", phase_reftraj), "17b": run("17b", phase_terrain_analytic)}
             distributed = run("18", p18.result)
+        p17["17c"] = run("17c", phase_closures)
+        p16["16d"] = run("16d", phase_cli_modes)
+        wb_terrain = run("14d", phase_wb_terrain)
         side = run("side", side_worker.result)
     terrain_eval, terrain_training, parity_rec = side["10"], side["11"], side["12"]
-    wb_fleet, wb_track, wb_parity, wb_terrain = (side[k] for k in ("14a", "14b", "14c", "14d"))
+    wb_fleet, wb_track, wb_parity = (side[k] for k in ("14a", "14b", "14c"))
     pe = {k: side[k] for k in ("15a", "15b", "15c", "15d", "15e")}
-    p16.update({k: side[k] for k in ("16a", "16d")})
-    p17["17c"] = side["17c"]
+    p16["16a"] = side["16a"]
     (perenv_training, perenv_variants), (ppo3_lstm, ppo3_mlp) = pe["15c"], pe["15d"]
     seconds.update({f"{k} (second process)": v for k, v in side["seconds"].items()})
 
@@ -4700,12 +4877,13 @@ def main(argv=None) -> int:
         "phys_substep": (phys_src, "high_speed_quadrupedal_locomotion_by_irrl_tpu/ops/phys_pallas.py:71",
                          "phys_control_step_kernel", "serving"),
         "lstm_cell": (lstm_src, lstm_repl, "lstm_cell_pair_kernel", "serving"),
-        # the two entries only training launches: the same TPU kernel's forward with the
-        # gates kept, and its gradient, which the JAX package leaves to XLA's transpose
-        "lstm_cell_train": (lstm_src, lstm_repl, "lstm_cell_train_kernel", "training"),
-        "lstm_cell_bwd": (lstm_src, "high_speed_quadrupedal_locomotion_by_irrl_tpu/models/lstm.py:83 "
-                          "(the cell's transpose under jax.grad; no TPU kernel)",
-                          "lstm_cell_bwd_kernel", "training"),
+        # the two entries only training launches, one a layer over the whole sequence: the
+        # same TPU kernel's forward (under lax.scan) with the gates kept, and its gradient,
+        # which the JAX package leaves to XLA's transpose
+        "lstm_seq_train": (lstm_src, lstm_repl, "lstm_seq_train_kernel", "training"),
+        "lstm_seq_bwd": (lstm_src, "high_speed_quadrupedal_locomotion_by_irrl_tpu/models/lstm.py:83 "
+                         "(the cell's transpose under jax.grad; no TPU kernel)",
+                         "lstm_seq_bwd_kernel", "training"),
         # the same TPU kernel under the landscape's jax.vmap over blended weight sets
         "lstm_cell_rows": (lstm_src, lstm_repl, "lstm_cell_pair_rows_kernel", "landscape")}
     runs = {"serving": serving, "full_width": full, "training": training, "mpc": mpc,
@@ -4730,7 +4908,8 @@ def main(argv=None) -> int:
               "analytic_bound_ms", "analytic_bound_by", "analytic_max_abs_err", "analytic_ptxas",
               "ptxas_map", "ptxas_substep", "wb_max_abs_err", "wb_widths",
               "cell_shape", "cell_ms", "cell_plain_ms", "cell_bound_ms", "cell_bound_by",
-              "cell_library_ms", "cell_max_abs_err", "cell_per_launch")
+              "cell_library_ms", "cell_max_abs_err", "cell_per_launch", "ms_a_step",
+              "ptxas", "smem_bytes", "bitwise_equal_to_inference")
     kernels = []
     for name, (src, repl, entry, path) in sources.items():
         k = kern[name]

@@ -43,24 +43,59 @@
 // elements, unit inner stride), so the pair launch reads the packed
 // recurrent state in place.
 //
-// Training. lstm_cell_train_kernel is the same forward (one tower or two on
-// gridDim.y, with the mask) that also keeps the activated gates [i, f, o, g]
-// of every row, (B, 4n), for the backward. lstm_cell_bwd_kernel is the
-// gradient of one step, with no TPU counterpart (the JAX package leaves the
-// transpose of its cell to XLA). From the gradients that reach c' and h' it
-// computes, in one launch a step:
-//   dct = dc' + dh' * o * (1 - tanh(c')^2)
-//   dgates = [dct*g*i(1-i), dct*(c*keep)*f(1-f), dh'*tanh(c')*o(1-o), dct*i*(1-g^2)]
-//   dc = dct * f * keep;   dh = (dgates @ Wh^T) * keep;   dx = dgates @ Wx^T
-// and writes dgates over the stashed gates, so that the weight gradients are
-// one product over all steps afterwards (ops/lstm_cuda.py). The two
-// transposed products are one reduction over the 4n gate columns, shaped as
-// the forward's: the wrapper hands the kernel [Wh^T | Wx^T] as one (4n, kp)
-// matrix, zero-padded to whole columns a thread, so a thread owns hidden
-// unit u of dh and columns u, u + n, ... of dx for its kRows rows, the
-// weight rows stream through the same cp.async ring and the tile of dgates
-// lies j-major in shared memory. It is bound like the forward: ~38 MFLOP and
-// ~2 MB a tower at B = 1024, latency and the shared-memory pipe, not flops.
+// Training: one launch a layer over the whole BPTT sequence, in each
+// direction. Neither kernel has a TPU counterpart: the JAX package runs its
+// cell under lax.scan and leaves the transpose to XLA. Rows of the batch never
+// meet in an LSTM layer, only step t and t + 1 of one row do, so a block that
+// owns a tile of rows walks all T steps alone, with no grid-wide
+// synchronisation, and keeps the layer's weights resident in shared memory
+// for the whole walk (up to 74 KB a tower, above the default 48 KB: the
+// launchers raise the block's limit with cudaFuncSetAttribute).
+//
+// * lstm_seq_train_kernel: the pair's forward (one tower or two on
+//   gridDim.y, the mask's pre-cell reset, the strided initial state) at every
+//   step, writing c_seq, h_seq and the activated gates [i, f, o, g] (T, B, 4n)
+//   for the backward. Two neighbouring lanes share a hidden unit: in the
+//   products one owns gates i and f of the group's rows, the other o and g
+//   (the weights lie unit-major, [k][u][gate], so each reads its two gate
+//   weights of a step as one 64-bit word); for the tail they swap halves by
+//   a shuffle and each finishes half the rows. That doubles the warps of a
+//   block (12 at 16 rows) and halves each thread's exp/tanh chains, the
+//   tail that dominates a step after the products. c stays in registers;
+//   h' * keep of the next step goes straight into the other half of a
+//   double-buffered input tile, whose x part cp.async fills with x[t + 1]
+//   while step t computes (mask[t + 1] is loaded into registers meanwhile).
+//   One __syncthreads a step. The reduction is cell_block's: fma over
+//   [x; h * keep] in ascending k, padded with zeros to whole chunks, then the
+//   same gate tail (cell_state), so the result is bit for bit a loop of pair
+//   launches (the rollout's cells) on the same inputs.
+// * lstm_seq_bwd_kernel: the gradient, walking t = T - 1 ... 0. From the
+//   gradients that reach c' and h' (from above: dc_up, dh_up; from step
+//   t + 1: dc_rec, dh_rec, held in registers) it computes at each step
+//     dct = dc' + dh' * o * (1 - tanh(c')^2)
+//     dgates = [dct*g*i(1-i), dct*(c*keep)*f(1-f), dh'*tanh(c')*o(1-o), dct*i*(1-g^2)]
+//     dc = dct * f * keep;   dh = (dgates @ Wh^T) * keep;   dx = dgates @ Wx^T
+//   writes dgates over the kept gates (the weight gradients are one product
+//   each over all steps afterwards, ops/lstm_cuda.py) and, after step 0, dc
+//   and dh of the initial state. The two transposed products are one
+//   reduction over the 4n gate columns in ascending order: the wrapper hands
+//   [Wh^T, Wx^T] interleaved as (4n, n, cols), resident in shared memory, a
+//   thread owns hidden unit u of dh and column u of dx (d <= n) for its rows,
+//   and the step's dgates lie j-major in a double-buffered tile. The next
+//   step's gates, c, c', dh_up, dc_up and mask are loaded into registers
+//   while this step computes.
+//
+// At B = 1024, n = 48 a step of both towers is 67-78 MFLOP forward and about
+// as many backward plus 3-4 MB of gates and states: at the card's f32 rate
+// the forward is bound by operations (~1 us a step) and the backward about
+// equally by bytes and operations. What held the per-step kernels these
+// replace back (a launch, a weight stream from L2 and a drain every step,
+// the recurrence through device memory) is gone. What is left is latency:
+// B = 1024 rows of two towers are ~16 rows an SM, so a step of an SM is one
+// block's chain of products, exact exp/reciprocal/tanh tail and barrier, with
+// few warps to hide either. The kernels are templates on the tile, rows a
+// thread (kR) and rows a block (kR * kG); kSeqTrain* and kSeqBwd* below hold
+// the fastest on the H100.
 //
 // One weight set a row. lstm_cell_pair_rows_kernel is the pair's function
 // (with the mask) where row b reads its own Wx[b] (d, 4n), Wh[b] (n, 4n) and
@@ -105,6 +140,13 @@ struct Strides {
 };
 
 __device__ __forceinline__ float sigmoidf(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// c' = f * c + i * g with its one rounding spelled out: the compiler may
+// contract the sum either way, and did so differently in two kernels, which
+// then parted in the last bit. The pair and the sequence forward share this.
+__device__ __forceinline__ float cell_state(float fg, float c, float ig, float cg) {
+  return __fmaf_rn(fg, c, ig * cg);
+}
 
 // acc[r][g] += w[g] * in[r] for the rows of this thread's group at one step.
 __device__ __forceinline__ void fma_step(float (&acc)[kRows][4], const float* s_row,
@@ -225,7 +267,7 @@ __device__ __forceinline__ void cell_block(const CellArgs& a, const float* __res
     const float fg = sigmoidf(acc[r][1] + b1);
     const float og = sigmoidf(acc[r][2] + b2);
     const float cg = tanhf(acc[r][3] + b3);
-    c_new[r] = fg * c_prev[r] + ig * cg;
+    c_new[r] = cell_state(fg, c_prev[r], ig, cg);
     h_new[r] = og * tanhf(c_new[r]);
     if (kTrain) { act[r][0] = ig; act[r][1] = fg; act[r][2] = og; act[r][3] = cg; }
   }
@@ -262,181 +304,367 @@ lstm_cell_pair_kernel(CellArgs a0, CellArgs a1, const float* __restrict__ mask, 
   cell_block<false>(a, mask, ld, B, d, n, smem);
 }
 
-// The forward of a training step: gridDim.y towers (1 or 2), the mask, and
-// the activated gates kept for lstm_cell_bwd_kernel.
-__global__ void __launch_bounds__(kMaxThreads)
-lstm_cell_train_kernel(CellArgs a0, CellArgs a1, float* __restrict__ gates0,
-                       float* __restrict__ gates1, const float* __restrict__ mask, Strides ld,
-                       int B, int d, int n) {
-  extern __shared__ __align__(16) float smem[];
-  const bool second = blockIdx.y != 0;
-  const CellArgs a = {second ? a1.x : a0.x,   second ? a1.h : a0.h,
-                      second ? a1.c : a0.c,   second ? a1.wx : a0.wx,
-                      second ? a1.wh : a0.wh, second ? a1.b : a0.b,
-                      second ? a1.h_out : a0.h_out, second ? a1.c_out : a0.c_out};
-  cell_block<true>(a, mask, ld, B, d, n, smem, second ? gates1 : gates0);
-}
+// --- a layer over a whole sequence: training --------------------------------------
 
-// --- backward of one step ------------------------------------------------------
+constexpr int kSeqMaxN = 64;             // hidden sizes up to 64: blockDim (2n or n, kG)
+constexpr int kSeqMaxSmem = 232448;      // 227 KB: a block's most on sm_90
+// The tiles, rows a thread and row groups a block: the forward takes 16 rows
+// of 4 (12 warps with its lane pairs, one block an SM at B = 1024), the
+// backward 8 rows of 2 (6 warps, two blocks an SM). Of 16 x 4, 16 x 2 and
+// 8 x 2 these were the fastest on the H100. A build may set others with
+// -DSEQ_TRAIN_ROWS=.. -DSEQ_TRAIN_GROUPS=.. -DSEQ_BWD_ROWS=.. -DSEQ_BWD_GROUPS=..
+// (rows a thread 2 or 4), as scripts/lstm_seq_tiles.py does to time them.
+#ifndef SEQ_TRAIN_ROWS
+#define SEQ_TRAIN_ROWS 4
+#endif
+#ifndef SEQ_TRAIN_GROUPS
+#define SEQ_TRAIN_GROUPS 4
+#endif
+#ifndef SEQ_BWD_ROWS
+#define SEQ_BWD_ROWS 2
+#endif
+#ifndef SEQ_BWD_GROUPS
+#define SEQ_BWD_GROUPS 4
+#endif
+constexpr int kSeqTrainRows = SEQ_TRAIN_ROWS, kSeqTrainGroups = SEQ_TRAIN_GROUPS;
+constexpr int kSeqBwdRows = SEQ_BWD_ROWS, kSeqBwdGroups = SEQ_BWD_GROUPS;
 
-struct BwdArgs {
-  float* __restrict__ gates;  // (B, 4n) in: activated [i, f, o, g]; out: dgates (pre-activation)
-  const float *__restrict__ c_prev, *__restrict__ c_new;  // c before the reset (row stride ld_c); c'
-  // gradients that reach h' and c', each (B, n) or null: from the layer above
-  // or the loss (up) and from step t + 1 (rec)
-  const float *__restrict__ dh_up, *__restrict__ dh_rec, *__restrict__ dc_up, *__restrict__ dc_rec;
-  const float* __restrict__ wt;  // (4n, kp): [Wh^T | Wx^T | 0]
-  float *__restrict__ dc_out, *__restrict__ dh_out;  // (B, n): to c and h of step t - 1
-  float* __restrict__ dx_out;                        // (B, d), or null with d = 0
+struct SeqArgs {
+  const float* __restrict__ x;                      // (T, B, d)
+  const float *__restrict__ h0, *__restrict__ c0;   // (B, n), row strides ld_h, ld_c
+  const float *__restrict__ wx, *__restrict__ wh, *__restrict__ b;
+  float *__restrict__ c_seq, *__restrict__ h_seq;   // (T, B, n)
+  float* __restrict__ gates;                        // (T, B, 4n): activated [i, f, o, g]
 };
 
-// Start the copy of rows chunk * kChunk ... of wt into one stage of the ring,
-// 16 bytes a copy, the block's threads striding over the chunk. Rows past 4n
-// get zeros. Always commits a group.
-__device__ __forceinline__ void load_wt_chunk(const float* __restrict__ wt, int n4, int kp,
-                                              int chunk, float* s_stage) {
-  const int kp4 = kp >> 2;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x, nthreads = blockDim.x * blockDim.y;
-  for (int idx = tid; idx < kChunk * kp4; idx += nthreads) {
-    const int r = idx / kp4, q = idx - r * kp4, j = chunk * kChunk + r;
-    float* dst = s_stage + r * kp + 4 * q;
-    if (j < n4) {
-      __pipeline_memcpy_async(dst, wt + (size_t)j * kp + 4 * q, 16);
-    } else {
-      *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    }
+// kR values at p (16-byte aligned for kR = 4, 8-byte for kR = 2) into v, and back.
+template <int kR>
+__device__ __forceinline__ void load_rows(float (&v)[kR], const float* p) {
+  static_assert(kR == 2 || kR == 4, "rows a thread");
+  if constexpr (kR == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  }
+}
+
+template <int kR>
+__device__ __forceinline__ void store_rows(float* p, const float (&v)[kR]) {
+  static_assert(kR == 1 || kR == 2 || kR == 4, "rows");
+  if constexpr (kR == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (kR == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+inline size_t seq_smem_bytes(int d, int n) {
+  const size_t kp = (size_t)(d + n + kChunk - 1) / kChunk * kChunk;   // the padded reduction
+  return sizeof(float) * (kp * 4 * n + 2 * kp * kSeqTrainRows * kSeqTrainGroups);
+}
+
+inline size_t seq_bwd_smem_bytes(int n, int cols) {
+  return sizeof(float) * ((size_t)4 * n * n * cols + (size_t)2 * 4 * n * kSeqBwdRows * kSeqBwdGroups);
+}
+
+// Start the copy of x[t]'s rows of this tile into s_tile[k][row] (k < d), 4
+// bytes a copy, neighbouring threads on neighbouring rows (conflict-free in
+// shared memory; the rows' lines are shared through L1). Rows past B are not
+// copied: they hold what the tile held, and no live row reads them.
+template <int kT>
+__device__ __forceinline__ void copy_x_async(const float* __restrict__ x_t, int B, int d,
+                                             int tile_first, float* s_tile) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x, nthr = blockDim.x * blockDim.y;
+  for (int idx = tid; idx < kT * d; idx += nthr) {
+    const int k = idx / kT, r = idx - k * kT, row = tile_first + r;
+    if (row < B) __pipeline_memcpy_async(s_tile + k * kT + r, x_t + (size_t)row * d + k, 4);
   }
   __pipeline_commit();
 }
 
-// kCols: output columns a thread owns: u (dh), then u + n, ... (dx).
-template <int kCols>
-__device__ __forceinline__ void cell_bwd_block(const BwdArgs& a, const float* __restrict__ mask,
-                                               int B, int d, int n, int kp, int ld_c,
-                                               float* smem) {
-  const int n4 = 4 * n;
-  const int nchunks = (n4 + kChunk - 1) / kChunk;
-  float* s_dg = smem;                            // [nchunks * kChunk][kTile], j-major
-  float* s_w = smem + nchunks * kChunk * kTile;  // [kStages][kChunk][kp]
+// Blocks of (n, kG) threads (the backward) or (2n, kG) (the forward); 8 rows
+// of 2 are meant to run two blocks an SM.
+#define SEQ_BOUNDS(kR, kG, lanes) \
+  __launch_bounds__(lanes * kSeqMaxN * kG, kR == 2 && kG == 4 ? 2 : 1)
 
-  for (int c = 0; c < kStages - 1; ++c) load_wt_chunk(a.wt, n4, kp, c, s_w + c * kChunk * kp);
+template <int kR, int kG>
+__global__ void SEQ_BOUNDS(kR, kG, 2)
+lstm_seq_train_kernel(SeqArgs a0, SeqArgs a1, const float* __restrict__ mask, int T, int B,
+                      int d, int n, int ld_h, int ld_c) {
+  constexpr int kT = kR * kG, kH = kR / 2;   // rows a block; rows of a thread's gate tail
+  extern __shared__ __align__(16) float smem[];
+  const bool second = blockIdx.y != 0;  // field by field: a struct picked whole goes to local memory
+  const SeqArgs a = {second ? a1.x : a0.x,         second ? a1.h0 : a0.h0,
+                     second ? a1.c0 : a0.c0,       second ? a1.wx : a0.wx,
+                     second ? a1.wh : a0.wh,       second ? a1.b : a0.b,
+                     second ? a1.c_seq : a0.c_seq, second ? a1.h_seq : a0.h_seq,
+                     second ? a1.gates : a0.gates};
+  const int n4 = 4 * n, K = d + n, kp = (K + kChunk - 1) / kChunk * kChunk;
+  float* s_w = smem;                // [kp][n][4]: the 4 gate weights of unit u at step k together
+  float* s_in = smem + kp * n4;     // [2][kp][kT]: x, then h * keep, then zeros; k-major
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x, nthr = blockDim.x * blockDim.y;
 
-  // the gate tail's derivative: thread (u, g) owns unit u of its group's kRows
-  // rows, as in the forward, and so reads and overwrites only its own gates
-  const int u = threadIdx.x;
-  const int row_first = blockIdx.x * kTile + threadIdx.y * kRows;
-  float keep[kRows], dg[4][kRows];
+  // once a launch: [Wx; Wh] by cp.async, 4 bytes a copy (each lands in its
+  // unit's quad), zeros past step K; both input tiles zeroed
+  for (int idx = tid; idx < kp * n4; idx += nthr) {
+    const int k = idx / n4, col = idx - k * n4, g = col / n, u = col - g * n;
+    float* dst = s_w + (k * n + u) * 4 + g;
+    if (k < K) {
+      const float* row = k < d ? a.wx + (size_t)k * n4 : a.wh + (size_t)(k - d) * n4;
+      __pipeline_memcpy_async(dst, row + col, 4);
+    } else {
+      *dst = 0.0f;
+    }
+  }
+  __pipeline_commit();
+  for (int idx = tid; idx < 2 * kp * kT; idx += nthr) s_in[idx] = 0.0f;
+  __syncthreads();
+
+  // the two lanes 2u and 2u + 1 (half 0 and 1) share hidden unit u of the
+  // group's kR rows: in the products half 0 owns gates i and f of every row,
+  // half 1 gates o and g; for the tail they swap, and half 0 owns all four
+  // gates of the first kH rows, half 1 of the last kH
+  const int half = threadIdx.x & 1, u = threadIdx.x >> 1;
+  const int tile_first = blockIdx.x * kT, group_first = tile_first + threadIdx.y * kR;
+  const int row_first = group_first + half * kH;   // of this thread's tail
+  copy_x_async<kT>(a.x, B, d, tile_first, s_in);
+  float keep[kH], c[kH], h[kH];
 #pragma unroll
-  for (int j = 0; j < kRows; ++j) {
+  for (int j = 0; j < kH; ++j) {
     const int row = row_first + j;
-    keep[j] = 1.0f;
-    dg[0][j] = dg[1][j] = dg[2][j] = dg[3][j] = 0.0f;
-    if (row < B) {
-      if (mask != nullptr) keep[j] = 1.0f - mask[row];
-      float* gp = a.gates + (size_t)row * n4 + u;
-      const float ig = gp[0], fg = gp[n], og = gp[2 * n], cg = gp[3 * n];
-      const size_t off = (size_t)row * n + u;
-      const float cm = a.c_prev[(size_t)row * ld_c + u] * keep[j];
-      const float tc = tanhf(a.c_new[off]);
-      const float dh = (a.dh_up != nullptr ? a.dh_up[off] : 0.0f) +
-                       (a.dh_rec != nullptr ? a.dh_rec[off] : 0.0f);
-      const float dc = (a.dc_up != nullptr ? a.dc_up[off] : 0.0f) +
-                       (a.dc_rec != nullptr ? a.dc_rec[off] : 0.0f);
+    const bool live = row < B;
+    keep[j] = (mask != nullptr && live) ? 1.0f - mask[row] : 1.0f;
+    c[j] = live ? a.c0[(size_t)row * ld_c + u] : 0.0f;
+    h[j] = live ? a.h0[(size_t)row * ld_h + u] * keep[j] : 0.0f;
+  }
+  float* s_h = s_in + (d + u) * kT + threadIdx.y * kR + half * kH;   // this thread's h rows
+  store_rows<kH>(s_h, h);
+  const float b0 = __ldg(a.b + u), b1 = __ldg(a.b + n + u), b2 = __ldg(a.b + 2 * n + u),
+              b3 = __ldg(a.b + 3 * n + u);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  const size_t step_x = (size_t)B * d, step_n = (size_t)B * n;
+  const float* sw = s_w + 4 * u + 2 * half;
+  for (int t = 0; t < T; ++t) {
+    const float* si = s_in + (t & 1) * kp * kT + threadIdx.y * kR;
+    float* so = s_in + ((t + 1) & 1) * kp * kT;
+    const bool more = t + 1 < T;
+    float keep_next[kH];
+    if (more) copy_x_async<kT>(a.x + (t + 1) * step_x, B, d, tile_first, so);
+#pragma unroll
+    for (int j = 0; j < kH; ++j) {
+      const int row = row_first + j;
+      keep_next[j] = (mask != nullptr && more && row < B) ? 1.0f - mask[(t + 1) * (size_t)B + row]
+                                                          : 1.0f;
+    }
+
+    float acc[kR][2];   // gates 2 * half and 2 * half + 1 of the group's rows
+#pragma unroll
+    for (int r = 0; r < kR; ++r) acc[r][0] = acc[r][1] = 0.0f;
+    for (int k0 = 0; k0 < kp; k0 += kChunk) {
+#pragma unroll
+      for (int kk = 0; kk < kChunk; ++kk) {
+        const int k = k0 + kk;
+        const float2 w = *reinterpret_cast<const float2*>(sw + k * n4);
+        float in[kR];
+        load_rows<kR>(in, si + k * kT);
+#pragma unroll
+        for (int r = 0; r < kR; ++r) {
+          acc[r][0] += in[r] * w.x;
+          acc[r][1] += in[r] * w.y;
+        }
+      }
+    }
+    // the swap: half 0 sends i, f of the last kH rows and receives o, g of the first
+    float pre[kH][4];
+#pragma unroll
+    for (int j = 0; j < kH; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float got = __shfl_xor_sync(0xffffffffu, half ? acc[j][q] : acc[kH + j][q], 1);
+        pre[j][q] = half ? got : acc[j][q];
+        pre[j][2 + q] = half ? acc[kH + j][q] : got;
+      }
+
+    // cell_block's tail on c * keep; every row computed, only the stores masked
+    float h_next[kH];
+#pragma unroll
+    for (int r = 0; r < kH; ++r) {
+      const float ig = sigmoidf(pre[r][0] + b0);
+      const float fg = sigmoidf(pre[r][1] + b1);
+      const float og = sigmoidf(pre[r][2] + b2);
+      const float cg = tanhf(pre[r][3] + b3);
+      const float c_prev = c[r] * keep[r];
+      const float c_new = cell_state(fg, c_prev, ig, cg);
+      const float h_new = og * tanhf(c_new);
+      const int row = row_first + r;
+      if (row < B) {
+        const size_t off = t * step_n + (size_t)row * n + u;
+        a.c_seq[off] = c_new;
+        a.h_seq[off] = h_new;
+        float* g = a.gates + 4 * t * step_n + (size_t)row * n4 + u;
+        g[0] = ig; g[n] = fg; g[2 * n] = og; g[3 * n] = cg;
+      }
+      c[r] = c_new;
+      h_next[r] = row < B ? h_new * keep_next[r] : 0.0f;
+      keep[r] = keep_next[r];
+    }
+    if (more) store_rows<kH>(s_h + ((t + 1) & 1) * kp * kT, h_next);
+    // x[t + 1] has landed for this thread; after the barrier, for all, and
+    // every thread is done reading this step's tile, which step t + 1 refills
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+}
+
+// --- its gradient -------------------------------------------------------------------
+
+struct SeqBwdArgs {
+  float* __restrict__ gates;                // (T, B, 4n) in: activated; out: dgates (pre-activation)
+  const float* __restrict__ c0;             // (B, n), row stride ld_c: c before step 0's reset
+  const float* __restrict__ c_seq;          // (T, B, n)
+  const float *__restrict__ dh_up, *__restrict__ dc_up;   // (T, B, n) or null
+  const float* __restrict__ wt;             // (4n, n, cols): [j][u] = (Wh^T[j][u], Wx^T[j][u])
+  float *__restrict__ dc0, *__restrict__ dh0;   // (B, n): to the initial state
+  float* __restrict__ dx;                   // (T, B, d), or null with cols = 1
+};
+
+// What step t reads of this thread's kR rows: the activated gates, c before
+// the reset (c_seq[t - 1], or c0 at t = 0), c' = c_seq[t], the gradients from
+// above and keep = 1 - mask[t]. Rows past B read zeros.
+template <int kR>
+struct BwdStep {
+  float g[4][kR], c_prev[kR], c_new[kR], dh[kR], dc[kR], keep[kR];
+};
+
+template <int kR>
+__device__ __forceinline__ void load_bwd_step(BwdStep<kR>& s, const SeqBwdArgs& a,
+                                              const float* __restrict__ mask, int t, int B,
+                                              int n, int ld_c, int row_first, int u) {
+  const size_t step_n = (size_t)B * n;
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    const int row = row_first + j;
+    const bool live = row < B;
+    const size_t off = t * step_n + (size_t)row * n + u;
+    const float* gp = a.gates + 4 * t * step_n + (size_t)row * 4 * n + u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) s.g[q][j] = live ? gp[q * n] : 0.0f;
+    s.c_prev[j] = !live ? 0.0f : t > 0 ? a.c_seq[off - step_n] : a.c0[(size_t)row * ld_c + u];
+    s.c_new[j] = live ? a.c_seq[off] : 0.0f;
+    s.dh[j] = (live && a.dh_up != nullptr) ? a.dh_up[off] : 0.0f;
+    s.dc[j] = (live && a.dc_up != nullptr) ? a.dc_up[off] : 0.0f;
+    s.keep[j] = (live && mask != nullptr) ? 1.0f - mask[t * (size_t)B + row] : 1.0f;
+  }
+}
+
+// kCols: 1 (dh) or 2 (dh and dx).
+template <int kR, int kG, int kCols>
+__global__ void SEQ_BOUNDS(kR, kG, 1)
+lstm_seq_bwd_kernel(SeqBwdArgs a0, SeqBwdArgs a1, const float* __restrict__ mask, int T, int B,
+                    int d, int n, int ld_c) {
+  constexpr int kT = kR * kG;
+  extern __shared__ __align__(16) float smem[];
+  const bool second = blockIdx.y != 0;
+  const SeqBwdArgs a = {second ? a1.gates : a0.gates, second ? a1.c0 : a0.c0,
+                        second ? a1.c_seq : a0.c_seq, second ? a1.dh_up : a0.dh_up,
+                        second ? a1.dc_up : a0.dc_up, second ? a1.wt : a0.wt,
+                        second ? a1.dc0 : a0.dc0,     second ? a1.dh0 : a0.dh0,
+                        second ? a1.dx : a0.dx};
+  const int n4 = 4 * n;
+  float* s_w = smem;                    // [4n][n][kCols]
+  float* s_dg = smem + n4 * n * kCols;  // [2][4n][kT]: dgates, j-major
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x, nthr = blockDim.x * blockDim.y;
+  for (int idx = tid; idx < n4 * n * kCols / 4; idx += nthr)
+    __pipeline_memcpy_async(s_w + 4 * idx, a.wt + 4 * idx, 16);
+  __pipeline_commit();
+
+  const int u = threadIdx.x, row_first = blockIdx.x * kT + threadIdx.y * kR;
+  const size_t step_n = (size_t)B * n;
+  BwdStep<kR> cur, nxt;
+  load_bwd_step<kR>(cur, a, mask, T - 1, B, n, ld_c, row_first, u);
+  float dh_rec[kR], dc_rec[kR];   // from step t + 1; none reaches the last step
+#pragma unroll
+  for (int j = 0; j < kR; ++j) dh_rec[j] = dc_rec[j] = 0.0f;
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  for (int t = T - 1; t >= 0; --t) {
+    if (t > 0) load_bwd_step<kR>(nxt, a, mask, t - 1, B, n, ld_c, row_first, u);
+    float* s_tile = s_dg + (t & 1) * n4 * kT;
+    float dg[4][kR];
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      const float ig = cur.g[0][j], fg = cur.g[1][j], og = cur.g[2][j], cg = cur.g[3][j];
+      const float cm = cur.c_prev[j] * cur.keep[j];
+      const float tc = tanhf(cur.c_new[j]);
+      const float dh = cur.dh[j] + dh_rec[j];
+      const float dc = cur.dc[j] + dc_rec[j];
       const float dct = dc + dh * og * (1.0f - tc * tc);
       dg[0][j] = dct * cg * ig * (1.0f - ig);
       dg[1][j] = dct * cm * fg * (1.0f - fg);
       dg[2][j] = dh * tc * og * (1.0f - og);
       dg[3][j] = dct * ig * (1.0f - cg * cg);
-      a.dc_out[off] = dct * fg * keep[j];
-      gp[0] = dg[0][j]; gp[n] = dg[1][j]; gp[2 * n] = dg[2][j]; gp[3 * n] = dg[3][j];
-    }
-  }
-  float* s_grp = s_dg + threadIdx.y * kRows;
-#pragma unroll
-  for (int g = 0; g < 4; ++g)
-#pragma unroll
-    for (int j = 0; j < kRows; j += 4)
-      *reinterpret_cast<float4*>(s_grp + (g * n + u) * kTile + j) =
-          make_float4(dg[g][j], dg[g][j + 1], dg[g][j + 2], dg[g][j + 3]);
-  for (int k = n4 + u; k < nchunks * kChunk; k += n)
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) s_grp[k * kTile + j] = 0.0f;
-
-  // out[row][col] = sum_j dgates[row][j] * wt[j][col]
-  float acc[kRows][kCols];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int q = 0; q < kCols; ++q) acc[r][q] = 0.0f;
-  int stage = 0;
-  for (int c = 0; c < nchunks; ++c) {
-    // as in the forward: chunk c has landed, chunk c - 1 is consumed (the
-    // first pass also publishes the tile of dgates)
-    __pipeline_wait_prior(kStages - 2);
-    __syncthreads();
-    const int next = stage == 0 ? kStages - 1 : stage - 1;
-    load_wt_chunk(a.wt, n4, kp, c + kStages - 1, s_w + next * kChunk * kp);
-    const float* sw = s_w + stage * kChunk * kp + u;
-    const float* si = s_grp + c * kChunk * kTile;
-#pragma unroll
-    for (int kk = 0; kk < kChunk; ++kk) {
-      float in[kRows], w[kCols];
-#pragma unroll
-      for (int q = 0; q < kCols; ++q) w[q] = sw[kk * kp + q * n];
-#pragma unroll
-      for (int r = 0; r < kRows; r += 4) {
-        const float4 v = *reinterpret_cast<const float4*>(si + kk * kTile + r);
-        in[r] = v.x; in[r + 1] = v.y; in[r + 2] = v.z; in[r + 3] = v.w;
+      dc_rec[j] = dct * fg * cur.keep[j];
+      const int row = row_first + j;
+      if (row < B) {
+        float* gp = a.gates + 4 * t * step_n + (size_t)row * n4 + u;
+        gp[0] = dg[0][j]; gp[n] = dg[1][j]; gp[2 * n] = dg[2][j]; gp[3 * n] = dg[3][j];
       }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int q = 0; q < kCols; ++q) acc[r][q] += in[r] * w[q];
     }
-    stage = stage == kStages - 1 ? 0 : stage + 1;
-  }
-
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
+    for (int q = 0; q < 4; ++q) store_rows<kR>(s_tile + (q * n + u) * kT + threadIdx.y * kR, dg[q]);
+    // the tile is whole; the other tile, which step t - 1 fills, was read by
+    // every thread before this barrier's predecessor
+    __syncthreads();
+
+    // out[row][col] = sum_j dgates[row][j] * wt[j][col], j ascending
+    float acc[kR][kCols];
+#pragma unroll
+    for (int r = 0; r < kR; ++r)
+#pragma unroll
+      for (int q = 0; q < kCols; ++q) acc[r][q] = 0.0f;
+    const float* si = s_tile + threadIdx.y * kR;
+    const float* sw = s_w + kCols * u;
+    for (int j0 = 0; j0 < n4; j0 += kChunk) {
+#pragma unroll
+      for (int jj = 0; jj < kChunk; ++jj) {
+        const int j = j0 + jj;
+        float in[kR], w[kCols];
+        load_rows<kR>(in, si + j * kT);
+        if constexpr (kCols == 2) {
+          const float2 q = *reinterpret_cast<const float2*>(sw + j * n * kCols);
+          w[0] = q.x; w[1] = q.y;
+        } else {
+          w[0] = sw[j * n];
+        }
+#pragma unroll
+        for (int r = 0; r < kR; ++r)
+#pragma unroll
+          for (int q = 0; q < kCols; ++q) acc[r][q] += in[r] * w[q];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      dh_rec[r] = acc[r][0] * cur.keep[r];
+      const int row = row_first + r;
+      if (kCols == 2 && row < B && u < d) a.dx[t * (size_t)B * d + (size_t)row * d + u] = acc[r][kCols - 1];
+    }
+    cur = nxt;
+  }
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
     const int row = row_first + r;
     if (row < B) {
-      a.dh_out[(size_t)row * n + u] = acc[r][0] * keep[r];
-#pragma unroll
-      for (int q = 1; q < kCols; ++q) {
-        const int col = (q - 1) * n + u;
-        if (col < d) a.dx_out[(size_t)row * d + col] = acc[r][q];
-      }
+      a.dc0[(size_t)row * n + u] = dc_rec[r];
+      a.dh0[(size_t)row * n + u] = dh_rec[r];
     }
   }
-}
-
-// gridDim.y towers (1 or 2); mask (B,) or null.
-template <int kCols>
-__global__ void __launch_bounds__(kMaxThreads)
-lstm_cell_bwd_kernel(BwdArgs a0, BwdArgs a1, const float* __restrict__ mask, int B, int d,
-                     int n, int kp, int ld_c) {
-  extern __shared__ __align__(16) float smem[];
-  const bool second = blockIdx.y != 0;
-  const BwdArgs a = {second ? a1.gates : a0.gates,   second ? a1.c_prev : a0.c_prev,
-                     second ? a1.c_new : a0.c_new,   second ? a1.dh_up : a0.dh_up,
-                     second ? a1.dh_rec : a0.dh_rec, second ? a1.dc_up : a0.dc_up,
-                     second ? a1.dc_rec : a0.dc_rec, second ? a1.wt : a0.wt,
-                     second ? a1.dc_out : a0.dc_out, second ? a1.dh_out : a0.dh_out,
-                     second ? a1.dx_out : a0.dx_out};
-  cell_bwd_block<kCols>(a, mask, B, d, n, kp, ld_c, smem);
-}
-
-constexpr int kMaxCols = 2;  // dx up to n wide
-
-inline size_t bwd_smem_bytes(int n, int kp) {
-  const size_t steps = (size_t)((4 * n + kChunk - 1) / kChunk) * kChunk;
-  return sizeof(float) * (steps * kTile + (size_t)kStages * kChunk * kp);
-}
-
-inline bool bwd_shape_ok(int d, int n, int cols, int kp) {
-  return d >= 0 && n > 0 && n * kGroups <= kMaxThreads && cols >= 1 && cols <= kMaxCols &&
-         d <= (cols - 1) * n && kp % 4 == 0 && kp >= cols * n &&
-         bwd_smem_bytes(n, kp) <= (size_t)kMaxSmem;
 }
 
 inline size_t smem_bytes(int d, int n) {
@@ -537,54 +765,73 @@ extern "C" int lstm_cell_pair_launch(const void* const* ptrs, const float* mask,
   return (int)cudaGetLastError();
 }
 
-// towers: 1 or 2. ptrs: 9 device pointers a tower, on the host: x h c wx wh b
-// h_out c_out gates_out. mask: (B,) device pointer or null.
-extern "C" int lstm_cell_train_launch(const void* const* ptrs, const float* mask, int towers,
-                                      int B, int d, int n, int ld_x, int ld_h, int ld_c,
-                                      int ld_out, cudaStream_t stream) {
-  if (!shape_ok(d, n) || towers < 1 || towers > 2) return (int)cudaErrorInvalidValue;
-  if (B > 0) {
-    CellArgs a[2];
-    float* gates[2];
-    for (int t = 0; t < 2; ++t) {
-      const void* const* p = ptrs + 9 * (t < towers ? t : 0);
-      a[t] = {(const float*)p[0], (const float*)p[1], (const float*)p[2], (const float*)p[3],
-              (const float*)p[4], (const float*)p[5], (float*)p[6], (float*)p[7]};
-      gates[t] = (float*)p[8];
-    }
-    const Strides ld = {ld_x, ld_h, ld_c, ld_out};
-    lstm_cell_train_kernel<<<dim3((B + kTile - 1) / kTile, towers), dim3(n, kGroups),
-                             smem_bytes(d, n), stream>>>(a[0], a[1], gates[0], gates[1], mask,
-                                                         ld, B, d, n);
+// Dynamic shared memory of the forward (backward = 0) or the backward at d
+// columns of dx (0: none), as the launchers ask for it.
+extern "C" size_t lstm_seq_smem_bytes(int backward, int d, int n) {
+  return backward ? seq_bwd_smem_bytes(n, d > 0 ? 2 : 1) : seq_smem_bytes(d, n);
+}
+
+// towers: 1 or 2. ptrs: 9 device pointers a tower, on the host: x h0 c0 wx wh
+// b c_seq h_seq gates. mask: (T, B) device pointer or null. ld_h, ld_c: row
+// strides of h0 and c0. Raises the kernel's shared-memory limit first.
+extern "C" int lstm_seq_train_launch(const void* const* ptrs, const float* mask, int towers,
+                                     int T, int B, int d, int n, int ld_h, int ld_c,
+                                     cudaStream_t stream) {
+  constexpr int kR = kSeqTrainRows, kG = kSeqTrainGroups, kT = kR * kG;
+  const size_t smem = seq_smem_bytes(d, n);
+  if (d <= 0 || n <= 0 || n > kSeqMaxN || n % 4 != 0 || T <= 0 || towers < 1 || towers > 2 ||
+      smem > (size_t)kSeqMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  SeqArgs a[2];
+  for (int t = 0; t < 2; ++t) {
+    const void* const* p = ptrs + 9 * (t < towers ? t : 0);
+    a[t] = {(const float*)p[0], (const float*)p[1], (const float*)p[2], (const float*)p[3],
+            (const float*)p[4], (const float*)p[5], (float*)p[6],       (float*)p[7],
+            (float*)p[8]};
   }
+  const cudaError_t e = cudaFuncSetAttribute(lstm_seq_train_kernel<kR, kG>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  lstm_seq_train_kernel<kR, kG><<<dim3((B + kT - 1) / kT, towers), dim3(2 * n, kG), smem,
+                                  stream>>>(a[0], a[1], mask, T, B, d, n, ld_h, ld_c);
   return (int)cudaGetLastError();
 }
 
-// towers: 1 or 2. ptrs: 11 device pointers a tower, on the host, in the order
-// of BwdArgs. d: columns of dx to write (0: none); cols: 1 + ceil(d / n);
-// kp: columns of wt. ld_c: row stride of c_prev.
-extern "C" int lstm_cell_bwd_launch(const void* const* ptrs, const float* mask, int towers, int B,
-                                    int d, int n, int cols, int kp, int ld_c,
-                                    cudaStream_t stream) {
-  if (!bwd_shape_ok(d, n, cols, kp) || towers < 1 || towers > 2)
-    return (int)cudaErrorInvalidValue;
-  if (B > 0) {
-    BwdArgs a[2];
-    for (int t = 0; t < 2; ++t) {
-      const void* const* p = ptrs + 11 * (t < towers ? t : 0);
-      a[t] = {(float*)p[0],        (const float*)p[1], (const float*)p[2], (const float*)p[3],
-              (const float*)p[4],  (const float*)p[5], (const float*)p[6], (const float*)p[7],
-              (float*)p[8],        (float*)p[9],       (float*)p[10]};
-    }
-    const dim3 grid((B + kTile - 1) / kTile, towers), block(n, kGroups);
-    const size_t smem = bwd_smem_bytes(n, kp);
-    if (cols == 1)
-      lstm_cell_bwd_kernel<1><<<grid, block, smem, stream>>>(a[0], a[1], mask, B, d, n, kp, ld_c);
-    else
-      lstm_cell_bwd_kernel<2><<<grid, block, smem, stream>>>(a[0], a[1], mask, B, d, n, kp, ld_c);
-  }
+template <int kCols>
+static int launch_seq_bwd(const SeqBwdArgs (&a)[2], const float* mask, int towers, int T, int B, int d,
+                   int n, int ld_c, size_t smem, cudaStream_t stream) {
+  constexpr int kR = kSeqBwdRows, kG = kSeqBwdGroups, kT = kR * kG;
+  const cudaError_t e = cudaFuncSetAttribute(lstm_seq_bwd_kernel<kR, kG, kCols>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  lstm_seq_bwd_kernel<kR, kG, kCols><<<dim3((B + kT - 1) / kT, towers), dim3(n, kG), smem,
+                                       stream>>>(a[0], a[1], mask, T, B, d, n, ld_c);
   return (int)cudaGetLastError();
 }
+
+// towers: 1 or 2. ptrs: 9 device pointers a tower, on the host, in the order
+// of SeqBwdArgs. d: columns of dx to write (0: none; else d <= n). ld_c: row
+// stride of c0. Raises the kernel's shared-memory limit first.
+extern "C" int lstm_seq_bwd_launch(const void* const* ptrs, const float* mask, int towers, int T,
+                                   int B, int d, int n, int ld_c, cudaStream_t stream) {
+  const size_t smem = seq_bwd_smem_bytes(n, d > 0 ? 2 : 1);
+  if (n <= 0 || n > kSeqMaxN || n % 4 != 0 || T <= 0 || towers < 1 || towers > 2 || d < 0 ||
+      d > n || smem > (size_t)kSeqMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return (int)cudaGetLastError();
+  SeqBwdArgs a[2];
+  for (int t = 0; t < 2; ++t) {
+    const void* const* p = ptrs + 9 * (t < towers ? t : 0);
+    a[t] = {(float*)p[0],       (const float*)p[1], (const float*)p[2],
+            (const float*)p[3], (const float*)p[4], (const float*)p[5],
+            (float*)p[6],       (float*)p[7],       (float*)p[8]};
+  }
+  return d > 0 ? launch_seq_bwd<2>(a, mask, towers, T, B, d, n, ld_c, smem, stream)
+               : launch_seq_bwd<1>(a, mask, towers, T, B, d, n, ld_c, smem, stream);
+}
+
+#undef SEQ_BOUNDS
 
 // ptrs: 16 device pointers on the host, tower 0 then tower 1, each x h c wx wh b
 // h_out c_out, with wx (B, d, 4n), wh (B, n, 4n), b (B, 4n) contiguous.

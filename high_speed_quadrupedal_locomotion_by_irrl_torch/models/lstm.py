@@ -24,9 +24,9 @@ products.
 
 :func:`sequence` is the BPTT forward. It walks the stack layer by layer, each
 layer over the whole sequence through
-:func:`..ops.lstm_cuda.lstm_layer_sequence` (on the card the training-mode
-kernel and, in the backward pass, the hand-written backward kernel; on the CPU
-the plain cells under autograd). A layer depends only on the layer below, so
+:func:`..ops.lstm_cuda.lstm_layer_sequence` (on the card one launch of the
+sequence forward kernel and, in the backward pass, one of the sequence
+backward kernel, for both towers; on the CPU the plain cells under autograd). A layer depends only on the layer below, so
 this computes what a loop over time of :func:`forward` computes, and the heads
 are applied once to the stacked latents.
 """

@@ -22,22 +22,25 @@ entry points over one device body:
 
 * :func:`lstm_layer_sequence` runs one layer of one tower, or of both, over
   a whole sequence ``(T, B, d)``. Where a gradient is asked for it is one
-  ``torch.autograd.Function`` around the sequence: a loop of launches of the
-  training-mode forward (which keeps the activated gates), a reverse loop of
-  launches of the hand-written backward kernel (which overwrites the gates
-  with their gradients), and then the weight gradients as one product each
-  over the stacked ``(T*B, .)`` buffers. The Function spans the sequence and
-  not a step so that those products are three a tower and not three a step,
-  and so that a step costs the host one launch and no autograd node.
-  :func:`lstm_cell` and :func:`lstm_cell_pair` with an input that requires
-  grad are that Function at T = 1.
+  ``torch.autograd.Function`` around the sequence: one launch of
+  ``lstm_seq_train_kernel``, which walks all T steps with the weights
+  resident in shared memory and keeps the activated gates; one launch of
+  ``lstm_seq_bwd_kernel``, which walks them back and overwrites the gates
+  with their gradients; and then the weight gradients as one product each
+  over the stacked ``(T*B, .)`` buffers. A layer costs the host one launch in
+  each direction, whatever T. :func:`lstm_cell` and :func:`lstm_cell_pair`
+  with an input that requires grad are that Function at T = 1. The plain
+  versions of the two kernels are :func:`lstm_layer_forward_plain` and
+  :func:`lstm_layer_backward_plain` (the reverse recurrence as the kernel
+  computes it, from the kept gates); the plain version of the whole layer,
+  which the CPU runs, is :func:`lstm_layer_sequence_plain` under autograd.
 
 For tensors on the CPU all run their plain version under ordinary autograd;
 for CUDA tensors they launch the kernels, whose products are their own
 register-tiled loops, or raise, never falling back. ``launches`` counts the
 launches of the inference forward, ``rows_launches`` those of the per-row
-forward, ``train_launches`` those of the training-mode forward and
-``bwd_launches`` those of the backward kernel.
+forward, ``train_launches`` those of the sequence forward and
+``bwd_launches`` those of the sequence backward: one a layer each.
 """
 
 from __future__ import annotations
@@ -52,27 +55,35 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import _build
 
 launches = 0        # inference-forward launches in this process
 rows_launches = 0   # per-row-weights forward launches
-train_launches = 0  # training-mode forward launches (gates kept for the backward)
-bwd_launches = 0    # backward-kernel launches
+train_launches = 0  # sequence-forward launches (gates kept for the backward), one a layer
+bwd_launches = 0    # sequence-backward launches, one a layer
 
 
 @functools.cache
 def _fns():
     lib = _build.load("lstm_cell")
     one, pair = lib.lstm_cell_launch, lib.lstm_cell_pair_launch
-    train, bwd = lib.lstm_cell_train_launch, lib.lstm_cell_bwd_launch
-    rows = lib.lstm_cell_pair_rows_launch
+    train, bwd = lib.lstm_seq_train_launch, lib.lstm_seq_bwd_launch
+    rows, smem = lib.lstm_cell_pair_rows_launch, lib.lstm_seq_smem_bytes
     one.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     pair.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p] + [ctypes.c_int] * 7
                      + [ctypes.c_void_p])
-    train.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p] + [ctypes.c_int] * 8
+    train.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p] + [ctypes.c_int] * 7
                       + [ctypes.c_void_p])
-    bwd.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p] + [ctypes.c_int] * 7
+    bwd.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p] + [ctypes.c_int] * 6
                     + [ctypes.c_void_p])
+    smem.argtypes, smem.restype = [ctypes.c_int] * 3, ctypes.c_size_t
     rows.argtypes = ([ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p] + [ctypes.c_int] * 7
                      + [ctypes.c_void_p])
     one.restype = pair.restype = train.restype = bwd.restype = rows.restype = ctypes.c_int
-    return one, pair, train, bwd, rows
+    return one, pair, train, bwd, rows, smem
+
+
+def seq_smem_bytes(backward: bool, d: int, n: int) -> int:
+    """Dynamic shared memory a block of the sequence forward, or of the
+    backward with ``d`` columns of dx (0: none), asks for (builds the
+    kernels' library if it is not built)."""
+    return _fns()[5](int(backward), d, n)
 
 
 def _stream(device: torch.device) -> int:
@@ -288,6 +299,85 @@ def lstm_layer_sequence_plain(ws, xs, mask_seq, states):
     return _step_loop(plain.lstm_cell, plain.lstm_cell_pair, ws, xs, mask_seq, states)
 
 
+def _keep(mask_seq, t):
+    return None if mask_seq is None else (1.0 - mask_seq[t])[:, None]
+
+
+def lstm_layer_forward_plain(ws, xs, mask_seq, states):
+    """The plain version of ``lstm_seq_train_kernel``: :func:`lstm_layer_sequence`'s
+    arguments -> [(c_seq, h_seq, gates)] a tower, with ``gates`` the activated
+    [i, f, o, g] of every step, (T, B, 4n), that the backward reads."""
+    out = []
+    for w, x_seq, (c, h) in zip(ws, xs, states):
+        n, cs, hs, gs = w.wh.shape[0], [], [], []
+        for t in range(x_seq.shape[0]):
+            keep = _keep(mask_seq, t)
+            if keep is not None:
+                c, h = c * keep, h * keep
+            pre = x_seq[t] @ w.wx + h @ w.wh + w.b
+            i, f, o = (torch.sigmoid(pre[:, k * n:(k + 1) * n]) for k in range(3))
+            g = torch.tanh(pre[:, 3 * n:])
+            c = f * c + i * g
+            h = o * torch.tanh(c)
+            cs.append(c)
+            hs.append(h)
+            gs.append(torch.cat([i, f, o, g], dim=-1))
+        out.append((torch.stack(cs), torch.stack(hs), torch.stack(gs)))
+    return out
+
+
+def lstm_layer_backward_plain(ws, xs, mask_seq, states, fwd, grads, need_dx: bool):
+    """The plain version of ``lstm_seq_bwd_kernel``: the reverse recurrence as
+    the kernel computes it, from the kept activated gates. ws, xs, mask_seq,
+    states: as :func:`lstm_layer_sequence`; fwd: [(c_seq, h_seq, gates)] a
+    tower (:func:`lstm_layer_forward_plain`); grads: [(dc_seq, dh_seq)] a
+    tower, the gradients that reach every step's c' and h' from above, each
+    (T, B, n) or None. -> [(dgates, dx, dc_init, dh_init)] a tower: the
+    pre-activation gates' gradients (T, B, 4n), the input's (T, B, d) or None
+    without ``need_dx``, and the initial state's (B, n) each, before its
+    reset. The weight gradients follow from dgates by
+    :func:`layer_weight_grads`."""
+    out = []
+    for w, x_seq, (c_init, _), (c_seq, _, gates), (dc_up, dh_up) in zip(ws, xs, states, fwd,
+                                                                         grads):
+        T, n = x_seq.shape[0], w.wh.shape[0]
+        dh_rec = dc_rec = torch.zeros_like(c_init)   # none reaches the last step
+        dgates, dx = [None] * T, [None] * T
+        for t in range(T - 1, -1, -1):
+            i, f, o, g = (gates[t][:, k * n:(k + 1) * n] for k in range(4))
+            keep = _keep(mask_seq, t)
+            c_prev = c_init if t == 0 else c_seq[t - 1]
+            if keep is not None:
+                c_prev = c_prev * keep
+            tc = torch.tanh(c_seq[t])
+            dh = (0.0 if dh_up is None else dh_up[t]) + dh_rec
+            dc = (0.0 if dc_up is None else dc_up[t]) + dc_rec
+            dct = dc + dh * o * (1.0 - tc * tc)
+            dg = torch.cat([dct * g * i * (1.0 - i), dct * c_prev * f * (1.0 - f),
+                            dh * tc * o * (1.0 - o), dct * i * (1.0 - g * g)], dim=-1)
+            dc_rec, dh_rec = dct * f, dg @ w.wh.T
+            if keep is not None:
+                dc_rec, dh_rec = dc_rec * keep, dh_rec * keep
+            dgates[t] = dg
+            if need_dx:
+                dx[t] = dg @ w.wx.T
+        out.append((torch.stack(dgates), torch.stack(dx) if need_dx else None, dc_rec, dh_rec))
+    return out
+
+
+def layer_weight_grads(x_seq, mask_seq, h_init, h_seq, dgates):
+    """dWx, dWh and db of one tower's layer from its gradients of the
+    pre-activation gates (T, B, 4n): one product each over the stacked
+    (T*B, .) buffers, the h of each step being the state before it after its
+    reset."""
+    (T, B, d), n4 = x_seq.shape, dgates.shape[-1]
+    dg = dgates.reshape(T * B, n4)
+    h_prev = torch.cat([h_init[None], h_seq[:-1]])
+    if mask_seq is not None:
+        h_prev = h_prev * (1.0 - mask_seq)[:, :, None]
+    return (x_seq.reshape(T * B, d).T @ dg, h_prev.reshape(T * B, n4 // 4).T @ dg, dg.sum(0))
+
+
 def lstm_layer_sequence(ws, xs, mask_seq, states):
     """One LSTM layer of one tower (``len(ws) == 1``) or of two independent
     towers of one shape over a sequence. ws: LSTMWeights a tower; xs: inputs a
@@ -313,11 +403,21 @@ def _ptr_array(ptrs):
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
 
 
+def _check_seq_shape(n: int) -> None:
+    """Raise on a hidden size the sequence kernels do not take: up to 64 and a
+    multiple of 4 (blocks of (2n, .) threads; the backward copies its weights
+    16 bytes at a time). A layer whose resident [Wx; Wh] passes a block's
+    shared memory is refused by the launcher."""
+    if not (0 < n <= 64 and n % 4 == 0):
+        raise ValueError(f"lstm layer: the sequence kernels take hidden sizes up to 64 that are "
+                         f"a multiple of 4, got n = {n}")
+
+
 class _LayerSequence(torch.autograd.Function):
-    """Forward: T launches of the training-mode kernel. Backward: T launches
-    of the backward kernel in reverse, then dWx, dWh and db as one product
-    each over all steps. Per tower the inputs are (x_seq, c_init, h_init, wx,
-    wh, b) and the outputs (c_seq, h_seq).
+    """Forward: one launch of the sequence forward. Backward: one launch of
+    the sequence backward, then dWx, dWh and db as one product each over all
+    steps. Per tower the inputs are (x_seq, c_init, h_init, wx, wh, b) and the
+    outputs (c_seq, h_seq).
 
     The gates kept by the forward are overwritten by the backward with their
     gradients (it saves a second (T, B, 4n) buffer a tower), so a graph can be
@@ -329,13 +429,14 @@ class _LayerSequence(torch.autograd.Function):
         towers = len(flat) // 6
         per = [flat[6 * i:6 * i + 6] for i in range(towers)]
         x0, c0, h0, wx0 = per[0][:4]
-        if x0.dim() != 3:
-            raise ValueError(f"lstm layer: x must be (T, B, d), got {tuple(x0.shape)}")
+        if x0.dim() != 3 or x0.shape[0] < 1:
+            raise ValueError(f"lstm layer: x must be (T, B, d) with T >= 1, got {tuple(x0.shape)}")
         (T, B, d), n, device = x0.shape, wx0.shape[1] // 4, x0.device
         if d > n and any(ctx.needs_input_grad[1 + 6 * i] for i in range(towers)):
             # a backward thread owns one column of dh and at most one of dx
             raise ValueError(f"lstm layer: the backward kernel writes a gradient for x only "
                              f"where d <= n, got d = {d}, n = {n}")
+        _check_seq_shape(n)
         xs = []
         for i, (x, c, h, wx, wh, b) in enumerate(per):
             x = x.contiguous()
@@ -354,25 +455,14 @@ class _LayerSequence(torch.autograd.Function):
         c_seqs = [new(T, B, n) for _ in per]
         h_seqs = [new(T, B, n) for _ in per]
         gates = [new(T, B, 4 * n) for _ in per]
-        fn, stream = _fns()[2], _stream(device)
-        sx, sn, sg = 4 * B * d, 4 * B * n, 16 * B * n   # bytes a step
-        base = [(x.data_ptr(), cs.data_ptr(), hs.data_ptr(), g.data_ptr(), p[3].data_ptr(),
-                 p[4].data_ptr(), p[5].data_ptr())
-                for x, cs, hs, g, p in zip(xs, c_seqs, h_seqs, gates, per)]
-        mask_ptr = None if mask_seq is None else mask_seq.data_ptr()
+        ptrs = [t.data_ptr() for x, cs, hs, g, p in zip(xs, c_seqs, h_seqs, gates, per)
+                for t in (x, p[2], p[1], p[3], p[4], p[5], cs, hs, g)]
         with torch.cuda.device(device):
-            for t in range(T):
-                ptrs = []
-                for (x, cs, hs, g, wx, wh, b), p in zip(base, per):
-                    h_in = p[2].data_ptr() if t == 0 else hs + (t - 1) * sn
-                    c_in = p[1].data_ptr() if t == 0 else cs + (t - 1) * sn
-                    ptrs += [x + t * sx, h_in, c_in, wx, wh, b, hs + t * sn, cs + t * sn,
-                             g + t * sg]
-                err = fn(_ptr_array(ptrs), None if mask_ptr is None else mask_ptr + 4 * t * B,
-                         towers, B, d, n, d, h0.stride(0) if t == 0 else n,
-                         c0.stride(0) if t == 0 else n, n, stream)
-                _build.check(err, "lstm_cell_train_launch")
-                train_launches += 1
+            err = _fns()[2](_ptr_array(ptrs), None if mask_seq is None else mask_seq.data_ptr(),
+                            towers, T, B, d, n, h0.stride(0), c0.stride(0), _stream(device))
+        _build.check(err, f"lstm_seq_train_launch at d = {d}, n = {n} (refused where "
+                          f"[Wx; Wh] and the input tiles pass a block's shared memory)")
+        train_launches += 1
         ctx.save_for_backward(mask_seq, *xs, *c_seqs, *h_seqs,
                               *(t for p in per for t in p[1:]))
         ctx.gates = gates
@@ -395,61 +485,36 @@ class _LayerSequence(torch.autograd.Function):
         per = [rest[5 * i:5 * i + 5] for i in range(towers)]   # c_init, h_init, wx, wh, b
         (T, B, d), n, device = xs[0].shape, c_seqs[0].shape[2], xs[0].device
         need_dx = any(ctx.needs_input_grad[1 + 6 * i] for i in range(towers))
-        dx_cols = d if need_dx else 0
-        cols = 1 + -(-dx_cols // n)
-        kp = -(-cols * n // 4) * 4
+        cols = 2 if need_dx else 1
         new = lambda *shape: torch.empty(shape, dtype=torch.float32, device=device)  # noqa: E731
         wts = []
-        for _, _, wx, wh, _ in per:   # [Wh^T | Wx^T | 0], (4n, kp)
-            wt = torch.zeros((4 * n, kp), dtype=torch.float32, device=device)
-            wt[:, :n] = wh.T
+        for _, _, wx, wh, _ in per:   # [j][u] = (Wh^T[j][u], Wx^T[j][u] or 0), (4n, n, cols)
+            wt = torch.zeros((4 * n, n, cols), dtype=torch.float32, device=device)
+            wt[:, :, 0] = wh.T
             if need_dx:
-                wt[:, n:n + d] = wx.T
+                wt[:, :d, 1] = wx.T
             wts.append(wt)
         d_cs = [None if g is None else g.contiguous() for g in grads[0::2]]
         d_hs = [None if g is None else g.contiguous() for g in grads[1::2]]
         d_xs = [new(T, B, d) if need_dx else None for _ in per]
-        rec = [new(2, 2, B, n) for _ in per]   # [ping-pong][dc, dh]
-        fn, stream = _fns()[3], _stream(device)
-        sx, sn, sg = 4 * B * d, 4 * B * n, 16 * B * n   # bytes a step
+        d_init = [new(2, B, n) for _ in per]   # [dc, dh] of the initial state
         opt = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-        # addresses as plain integers, so that a step dispatches no PyTorch op
-        base = [(g.data_ptr(), p[0].data_ptr(), cs.data_ptr(), opt(dh), opt(dc), wt.data_ptr(),
-                 r.data_ptr(), opt(dx))
-                for g, p, cs, dh, dc, wt, r, dx in zip(gates, per, c_seqs, d_hs, d_cs, wts, rec,
-                                                       d_xs)]
-        mask_ptr = None if mask_seq is None else mask_seq.data_ptr()
-        ld_c0 = per[0][0].stride(0)
+        ptrs = [v for g, p, cs, dh, dc, wt, d0, dx in zip(gates, per, c_seqs, d_hs, d_cs, wts,
+                                                         d_init, d_xs)
+                for v in (g.data_ptr(), p[0].data_ptr(), cs.data_ptr(), opt(dh), opt(dc),
+                          wt.data_ptr(), d0[0].data_ptr(), d0[1].data_ptr(), opt(dx))]
         with torch.cuda.device(device):
-            for t in range(T - 1, -1, -1):
-                ptrs = []
-                for g, c_init, cs, dh, dc, wt, r, dx in base:
-                    # step t reads what step t + 1 wrote into one half of `rec` and writes
-                    # the other; the last step reads no recurrent gradient (0: a null pointer)
-                    src, dst = r + ((t + 1) % 2) * 2 * sn, r + (t % 2) * 2 * sn
-                    rec_on = t < T - 1
-                    ptrs += [g + t * sg, c_init if t == 0 else cs + (t - 1) * sn, cs + t * sn,
-                             dh and dh + t * sn, src + sn if rec_on else 0,
-                             dc and dc + t * sn, src if rec_on else 0,
-                             wt, dst, dst + sn, dx and dx + t * sx]
-                err = fn(_ptr_array(ptrs), None if mask_ptr is None else mask_ptr + 4 * t * B,
-                         towers, B, dx_cols, n, cols, kp, ld_c0 if t == 0 else n, stream)
-                _build.check(err, "lstm_cell_bwd_launch")
-                bwd_launches += 1
+            err = _fns()[3](_ptr_array(ptrs), None if mask_seq is None else mask_seq.data_ptr(),
+                            towers, T, B, d if need_dx else 0, n, per[0][0].stride(0),
+                            _stream(device))
+        _build.check(err, "lstm_seq_bwd_launch")
+        bwd_launches += 1
         out = [None]
-        keep = None if mask_seq is None else (1.0 - mask_seq)[:, :, None]
         for i, (c_init, h_init, wx, wh, b) in enumerate(per):
             need = ctx.needs_input_grad[1 + 6 * i:7 + 6 * i]
-            dg = gates[i].view(T * B, 4 * n)
-            d_wx = xs[i].view(T * B, d).T @ dg if need[3] else None
-            d_wh = None
-            if need[4]:   # the h each step started from: the state before it, after the reset
-                h_prev = torch.cat([h_init[None], h_seqs[i][:-1]])
-                if keep is not None:
-                    h_prev = h_prev * keep
-                d_wh = h_prev.view(T * B, n).T @ dg
-            d_b = dg.sum(0) if need[5] else None
-            out += [d_xs[i] if need[0] else None, rec[i][0][0] if need[1] else None,
-                    rec[i][0][1] if need[2] else None, d_wx, d_wh, d_b]
+            d_wx, d_wh, d_b = (layer_weight_grads(xs[i], mask_seq, h_init, h_seqs[i], gates[i])
+                               if any(need[3:]) else (None, None, None))
+            out += [d_xs[i] if need[0] else None, d_init[i][0] if need[1] else None,
+                    d_init[i][1] if need[2] else None, d_wx if need[3] else None,
+                    d_wh if need[4] else None, d_b if need[5] else None]
         return tuple(out)
-

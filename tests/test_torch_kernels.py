@@ -353,18 +353,21 @@ def _layer_problem(B, d, towers, masked, T, device, seed, need_dx=True):
     return leaves, run
 
 
-@pytest.mark.parametrize("B", [1024, 37, 5])
-@pytest.mark.parametrize("d", [35, 48])
-@pytest.mark.parametrize("towers,masked,T,need_dx", [
-    (2, True, 1, True), (2, False, 1, True), (1, True, 1, True), (2, True, 4, True),
-    (1, False, 3, True), (2, True, 4, False), (1, True, 1, False)])
+_LAYER_CASES = [(2, True, 1, True), (2, False, 1, True), (1, True, 1, True), (2, True, 4, True),
+                (1, False, 3, True), (2, True, 4, False), (1, True, 1, False)]
+
+
+@pytest.mark.parametrize("B,d,towers,masked,T,need_dx", [
+    (B, d, *case) for B in (1024, 37, 5) for d in (35, 48) for case in _LAYER_CASES] + [
+    # the training epochs' shape: a 750-step rollout of 1024 envs, both layers
+    (1024, 35, 2, True, 750, False), (1024, 48, 2, True, 750, True)])
 def test_lstm_backward_kernel_matches_autograd(cuda, B, d, towers, masked, T, need_dx):
-    """The training-mode forward and the backward kernel, through the autograd
+    """The sequence forward and backward kernels, through the autograd
     Function, against autograd of the plain cells: outputs, and the gradient
     of every input (dx, dc, dh through strided views of a packed state, dWx,
     dWh, db), with gradients arriving at every step's c' and h'. Without
     ``need_dx`` the inputs ask for no gradient, as a first layer's: the kernel
-    then computes dh alone."""
+    then computes dh alone. One launch of each kernel a layer, whatever T."""
     leaves, run = _layer_problem(B, d, towers, masked, T, cuda, seed=B + d + T, need_dx=need_dx)
     plain_leaves = {k: _leaf(v) for k, v in leaves.items()}
     before = (lstm_cuda.train_launches, lstm_cuda.bwd_launches)
@@ -375,7 +378,7 @@ def test_lstm_backward_kernel_matches_autograd(cuda, B, d, towers, masked, T, ne
     want, loss_plain = run(lstm_cuda.lstm_layer_sequence_plain, plain_leaves, probes)
     loss_plain.backward()
     torch.cuda.synchronize()
-    assert (lstm_cuda.train_launches, lstm_cuda.bwd_launches) == (before[0] + T, before[1] + T)
+    assert (lstm_cuda.train_launches, lstm_cuda.bwd_launches) == (before[0] + 1, before[1] + 1)
     for (c, h), (wc, wh) in zip(got, want):   # f32 gate products of length <= 96, another order
         torch.testing.assert_close(c, wc, atol=1e-5, rtol=0)
         torch.testing.assert_close(h, wh, atol=1e-5, rtol=0)
@@ -415,7 +418,7 @@ def test_lstm_layer_refuses_dx_wider_than_n(cuda):
     assert lstm_cuda.train_launches == before
     [(c, h)] = lstm_cuda.lstm_layer_sequence((w,), (r(2, B, d),), None, (state,))
     (c.sum() + h.sum()).backward()
-    assert w.wx.grad is not None and lstm_cuda.train_launches == before + 2
+    assert w.wx.grad is not None and lstm_cuda.train_launches == before + 1
 
 
 def test_cell_wrappers_with_grad_match_plain(cuda):
@@ -445,16 +448,15 @@ def test_cell_wrappers_with_grad_match_plain(cuda):
     before = (lstm_cuda.launches, lstm_cuda.train_launches)
     lstm_cuda.lstm_cell(w, base["x"], base["c"], base["h"])
     assert (lstm_cuda.launches, lstm_cuda.train_launches) == (before[0] + 1, before[1])
-    with pytest.raises(ValueError, match="row stride"):
-        lstm_cuda.lstm_cell_pair_rows(w0, w1, x0.contiguous(), x1, c0, h0, c1, h1)
     with pytest.raises(RuntimeError, match="requires grad"):
         lstm_cuda._lstm_cell_kernel(w, _leaf(base["x"]), base["c"], base["h"])
 
 
 def test_sequence_bptt_through_kernels_matches_plain(cuda, monkeypatch):
-    """models.lstm.sequence on the card: 2 training-mode and 2 backward pair
-    launches a step, and the loss gradient of every parameter leaf agrees
-    with the plain cells under autograd."""
+    """models.lstm.sequence on the card: one sequence-forward and one
+    sequence-backward launch a layer (both towers in each), and the loss
+    gradient of every parameter leaf agrees with the plain cells under
+    autograd."""
     T, B = 6, 37
     g = torch.Generator(device=cuda).manual_seed(9)
     obs = torch.randn(T, B, 35, generator=g, device=cuda)
@@ -473,7 +475,7 @@ def test_sequence_bptt_through_kernels_matches_plain(cuda, monkeypatch):
         loss.backward()
         torch.cuda.synchronize()
         launched = (lstm_cuda.train_launches - before[0], lstm_cuda.bwd_launches - before[1])
-        assert launched == ((0, 0) if plain else (2 * T, 2 * T))
+        assert launched == ((0, 0) if plain else (2, 2))
         results.append((out, loss, p))
     (o0, l0, p0), (o1, l1, p1) = results
     torch.testing.assert_close(o0.mean, o1.mean, atol=1e-5, rtol=0)
