@@ -53,6 +53,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.models import io as mio
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import registry
 from high_speed_quadrupedal_locomotion_by_irrl_torch.parallel import mesh as pmesh
+from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -200,53 +201,61 @@ def rollout(env_cfg: EnvConfig, ppo_cfg: PPOConfig, ts: TrainState,
     pol = ppo_cfg.policy_mod
     env_step = bp.step_batch if env_cfg.use_lanes_physics else bp.step
     T, B, dev = ppo_cfg.n_steps, ts.obs.shape[0], ts.obs.device
-    t_start = _clock(dev) if timings is not None else 0.0
-    buf = lambda *shape: torch.empty((T, B) + shape, device=dev)  # noqa: E731
-    mb_obs, mb_actions = buf(bp.OBS_DIM), buf(bp.ACT_DIM)
-    mb_values, mb_nlp, mb_dones_before, mb_rewards, mb_dones_after = (buf() for _ in range(5))
-    env_state, lstm_state, obs, dones = ts.env_state, ts.lstm_state, ts.obs, ts.dones
-    ep_ret, ep_len = torch.zeros(B, device=dev), torch.zeros(B, device=dev)
-    ret_sum, len_sum = torch.zeros((), device=dev), torch.zeros((), device=dev)
-    for t in range(T):
-        dones_f = dones.to(obs.dtype)
-        # heads by row_product: a row acts alike whatever the width (and world size)
-        out = pol.forward(ts.params, obs, lstm_state, dones_f, stable_rows=True)
-        action = lstm.sample(ts.gen_train, out.mean, out.logstd)
-        mb_nlp[t] = lstm.neglogp(out.mean, out.logstd, action)
-        # the unclipped action is stored; the env takes the action-space bounds
-        # (Runner, ppo2.py:530)
-        step_out = env_step(env_cfg, env_state, torch.clamp(action, -1.0, 1.0), ts.gen_env)
-        mb_obs[t], mb_actions[t], mb_values[t] = obs, action, out.value
-        mb_dones_before[t], mb_rewards[t], mb_dones_after[t] = dones_f, step_out.reward, step_out.done
-        # per-episode accumulators; (r, l) counted on done like the reference's
-        # episode info dicts (RaisimGymVecEnv.py:42-50)
-        d = step_out.done
-        ep_ret = ep_ret + step_out.reward
-        ep_len = ep_len + 1.0
-        ret_sum = ret_sum + torch.sum(torch.where(d, ep_ret, 0.0))
-        len_sum = len_sum + torch.sum(torch.where(d, ep_len, 0.0))
-        ep_ret = torch.where(d, 0.0, ep_ret)
-        ep_len = torch.where(d, 0.0, ep_len)
-        env_state, lstm_state, obs, dones = step_out.state, out.state, step_out.obs, d
-    ep_stats = EpStats(ret_sum=ret_sum, len_sum=len_sum, count=torch.sum(mb_dones_after))
-    t_collected = _clock(dev) if timings is not None else 0.0
+    with profiling.span("ppo.rollout"):
+        t_start = _clock(dev) if timings is not None else 0.0
+        buf = lambda *shape: torch.empty((T, B) + shape, device=dev)  # noqa: E731
+        mb_obs, mb_actions = buf(bp.OBS_DIM), buf(bp.ACT_DIM)
+        mb_values, mb_nlp, mb_dones_before, mb_rewards, mb_dones_after = (buf() for _ in range(5))
+        env_state, lstm_state, obs, dones = ts.env_state, ts.lstm_state, ts.obs, ts.dones
+        ep_ret, ep_len = torch.zeros(B, device=dev), torch.zeros(B, device=dev)
+        ret_sum, len_sum = torch.zeros((), device=dev), torch.zeros((), device=dev)
+        for t in range(T):
+            profiling.set_step(t)
+            with profiling.span("ppo.policy"):
+                dones_f = dones.to(obs.dtype)
+                # heads by row_product: a row acts alike whatever the width (and world size)
+                out = pol.forward(ts.params, obs, lstm_state, dones_f, stable_rows=True)
+                action = lstm.sample(ts.gen_train, out.mean, out.logstd)
+                mb_nlp[t] = lstm.neglogp(out.mean, out.logstd, action)
+                # the unclipped action is stored; the env takes the action-space bounds
+                # (Runner, ppo2.py:530)
+                env_action = torch.clamp(action, -1.0, 1.0)
+            step_out = env_step(env_cfg, env_state, env_action, ts.gen_env)
+            with profiling.span("ppo.record"):
+                mb_obs[t], mb_actions[t], mb_values[t] = obs, action, out.value
+                mb_dones_before[t], mb_rewards[t] = dones_f, step_out.reward
+                mb_dones_after[t] = step_out.done
+                # per-episode accumulators; (r, l) counted on done like the reference's
+                # episode info dicts (RaisimGymVecEnv.py:42-50)
+                d = step_out.done
+                ep_ret = ep_ret + step_out.reward
+                ep_len = ep_len + 1.0
+                ret_sum = ret_sum + torch.sum(torch.where(d, ep_ret, 0.0))
+                len_sum = len_sum + torch.sum(torch.where(d, ep_len, 0.0))
+                ep_ret = torch.where(d, 0.0, ep_ret)
+                ep_len = torch.where(d, 0.0, ep_len)
+            env_state, lstm_state, obs, dones = step_out.state, out.state, step_out.obs, d
+        profiling.set_step(None)
+        ep_stats = EpStats(ret_sum=ret_sum, len_sum=len_sum, count=torch.sum(mb_dones_after))
+        t_collected = _clock(dev) if timings is not None else 0.0
 
-    last_value = pol.forward(ts.params, obs, lstm_state, dones.to(obs.dtype),
-                             stable_rows=True).value
-    _, returns = advantages(mb_rewards, mb_values, mb_dones_after, last_value,
-                            ppo_cfg.gamma, ppo_cfg.lam)
-    batch = Batch(obs=mb_obs, actions=mb_actions, values=mb_values, neglogpacs=mb_nlp,
-                  returns=returns, dones_before=mb_dones_before, rewards=mb_rewards,
-                  init_lstm_state=ts.lstm_state)
+    with profiling.span("ppo.gae"):
+        last_value = pol.forward(ts.params, obs, lstm_state, dones.to(obs.dtype),
+                                 stable_rows=True).value
+        _, returns = advantages(mb_rewards, mb_values, mb_dones_after, last_value,
+                                ppo_cfg.gamma, ppo_cfg.lam)
+        batch = Batch(obs=mb_obs, actions=mb_actions, values=mb_values, neglogpacs=mb_nlp,
+                      returns=returns, dones_before=mb_dones_before, rewards=mb_rewards,
+                      init_lstm_state=ts.lstm_state)
 
-    # reference resets every env after each rollout (ppo2.py:577); dones and the
-    # LSTM state carry over
-    env_state = bp.reset(env_cfg, env_state, ts.gen_env)
-    new_ts = ts.replace(env_state=env_state, lstm_state=lstm_state,
-                        obs=bp.observe(env_cfg, env_state), dones=dones)
-    if timings is not None:
-        timings["rollout_s"] = t_collected - t_start
-        timings["gae_s"] = _clock(dev) - t_collected
+        # reference resets every env after each rollout (ppo2.py:577); dones and the
+        # LSTM state carry over
+        env_state = bp.reset(env_cfg, env_state, ts.gen_env)
+        new_ts = ts.replace(env_state=env_state, lstm_state=lstm_state,
+                            obs=bp.observe(env_cfg, env_state), dones=dones)
+        if timings is not None:
+            timings["rollout_s"] = t_collected - t_start
+            timings["gae_s"] = _clock(dev) - t_collected
     return new_ts, batch, ep_stats
 
 
@@ -324,28 +333,34 @@ def train_minibatch(params: lstm.PolicyParams, opt: torch.optim.Adam, mb: Option
     is this rank's part (``shard``; None if it owns no env of the
     minibatch, and then it runs no forward but joins the all-reduce with
     zeros) and one all-reduce sums the gradients, the loss and its terms."""
-    opt.zero_grad(set_to_none=True)
-    if mb is not None:
-        loss, aux = ppo_loss(params, mb, ppo_cfg, shard)
-        loss.backward()
-        loss = loss.detach()
-    else:
-        loss = torch.zeros((), device=params.pi_w.device)
-        aux = {k: torch.zeros_like(loss) for k in _LOSS_TERMS}
-    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params.leaves()]
-    if mesh is not None:
-        flat = pmesh.all_reduce_sum(mesh, torch.cat(
-            [g.flatten() for g in grads] + [torch.stack([loss] + [aux[k] for k in _LOSS_TERMS])]))
-        n_terms = 1 + len(_LOSS_TERMS)
-        for g, part in zip(grads, torch.split(flat, [g.numel() for g in grads] + [n_terms])):
-            g.copy_(part.view_as(g))
-        loss, *terms = flat[-n_terms:].unbind()
-        aux = dict(zip(_LOSS_TERMS, terms))
-    for p, g in zip(params.leaves(), grads):
-        p.grad = g
-    grad_norm = clip_by_global_norm_(grads, ppo_cfg.max_grad_norm)
-    opt.step()
-    return {"loss": loss, **aux, "grad_norm": grad_norm}
+    with profiling.span("ppo.minibatch"):
+        opt.zero_grad(set_to_none=True)
+        if mb is not None:
+            loss, aux = ppo_loss(params, mb, ppo_cfg, shard)
+            with profiling.span("ppo.backward"):
+                loss.backward()
+            loss = loss.detach()
+        else:
+            loss = torch.zeros((), device=params.pi_w.device)
+            aux = {k: torch.zeros_like(loss) for k in _LOSS_TERMS}
+        with profiling.span("ppo.adam"):
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params.leaves()]
+            if mesh is not None:
+                flat = pmesh.all_reduce_sum(mesh, torch.cat(
+                    [g.flatten() for g in grads]
+                    + [torch.stack([loss] + [aux[k] for k in _LOSS_TERMS])]))
+                n_terms = 1 + len(_LOSS_TERMS)
+                for g, part in zip(grads, torch.split(flat, [g.numel() for g in grads]
+                                                      + [n_terms])):
+                    g.copy_(part.view_as(g))
+                loss, *terms = flat[-n_terms:].unbind()
+                aux = dict(zip(_LOSS_TERMS, terms))
+            for p, g in zip(params.leaves(), grads):
+                p.grad = g
+            grad_norm = clip_by_global_norm_(grads, ppo_cfg.max_grad_norm)
+            opt.step()
+        return {"loss": loss, **aux, "grad_norm": grad_norm}
 
 
 def _mean_metrics(rows: list) -> dict:
@@ -457,6 +472,7 @@ def make_update_fn(env_cfg: EnvConfig, ppo_cfg: PPOConfig,
     if mesh is not None and n_envs % mesh.world:
         raise ValueError(f"num_envs {n_envs} must divide evenly across the {mesh.world} ranks")
 
+    @profiling.span("ppo.update")
     def update(ts: TrainState):
         timings: dict = {}
         comm_s = mesh.seconds["collectives"] if mesh is not None else 0.0
@@ -464,28 +480,31 @@ def make_update_fn(env_cfg: EnvConfig, ppo_cfg: PPOConfig,
         z_scale = None if terr is None else terr.z_scale.sum() if mesh else terr.z_scale.mean()
         ts, batch, ep = rollout(env_cfg, ppo_cfg, ts, timings)
         dev = batch.obs.device
-        t0 = _clock(dev)
-        epochs = train_epochs(ts.params, ts.opt_state, batch, ppo_cfg, ts.gen_train, n_envs, mesh)
-        metrics = _mean_metrics(epochs)   # entropy: as logged before the projection below
-        metrics["loss_first_epoch"] = epochs[0]["loss"]
-        metrics["loss_last_epoch"] = epochs[-1]["loss"]
-        with torch.no_grad():
-            if ppo_cfg.entropy_floor is not None:
-                # project entropy back to the floor: uniform additive logstd
-                # bump (entropy is sum(logstd) + const, so this is the
-                # minimum-norm projection onto {entropy >= floor})
-                logstd = ts.params.logstd
-                bump = (torch.clamp(ppo_cfg.entropy_floor - lstm.entropy(logstd), min=0.0)
-                        / logstd.shape[-1])
-                logstd.add_(bump)
-        if mesh is not None:
-            metrics.update(_sharded_batch_metrics(mesh, batch, ep, z_scale, n_envs))
-            metrics["time_collectives_s"] = mesh.seconds["collectives"] - comm_s
-        else:
-            metrics.update(_batch_metrics(batch, ep, z_scale))
+        with profiling.span("ppo.epochs"):
+            t0 = _clock(dev)
+            epochs = train_epochs(ts.params, ts.opt_state, batch, ppo_cfg, ts.gen_train, n_envs,
+                                  mesh)
+            metrics = _mean_metrics(epochs)   # entropy: as logged before the projection below
+            metrics["loss_first_epoch"] = epochs[0]["loss"]
+            metrics["loss_last_epoch"] = epochs[-1]["loss"]
+            with torch.no_grad():
+                if ppo_cfg.entropy_floor is not None:
+                    # project entropy back to the floor: uniform additive logstd
+                    # bump (entropy is sum(logstd) + const, so this is the
+                    # minimum-norm projection onto {entropy >= floor})
+                    logstd = ts.params.logstd
+                    bump = (torch.clamp(ppo_cfg.entropy_floor - lstm.entropy(logstd), min=0.0)
+                            / logstd.shape[-1])
+                    logstd.add_(bump)
+            if mesh is not None:
+                metrics.update(_sharded_batch_metrics(mesh, batch, ep, z_scale, n_envs))
+                metrics["time_collectives_s"] = mesh.seconds["collectives"] - comm_s
+            else:
+                metrics.update(_batch_metrics(batch, ep, z_scale))
+            epochs_s = _clock(dev) - t0
         metrics["time_rollout_s"] = timings["rollout_s"]
         metrics["time_gae_s"] = timings["gae_s"]
-        metrics["time_epochs_s"] = _clock(dev) - t0
+        metrics["time_epochs_s"] = epochs_s
         ts.update_idx += 1
         return ts, metrics
 
@@ -524,7 +543,6 @@ def learn(env_cfg: EnvConfig, ppo_cfg: PPOConfig, total_timesteps: int,
     n_updates = max(1, total_timesteps // batch_size)
     try:
         for i in range(n_updates):
-            t0 = time.time()
             if state_hook is not None:
                 ts = state_hook(ts, i / max(n_updates - 1, 1))
             if ppo_cfg.lr_final is not None:
@@ -533,7 +551,9 @@ def learn(env_cfg: EnvConfig, ppo_cfg: PPOConfig, total_timesteps: int,
             ts, metrics = update_fn(ts)
             if verbose or callback or metrics_hook:
                 metrics = {k: float(v) for k, v in metrics.items()}
-                metrics["fps"] = batch_size / max(time.time() - t0, 1e-9)
+                # env steps over the update's own synchronized times
+                metrics["fps"] = batch_size / max(metrics["time_rollout_s"] + metrics["time_gae_s"]
+                                                  + metrics["time_epochs_s"], 1e-9)
                 metrics["timesteps"] = (i + 1) * batch_size
                 if ppo_cfg.lr_final is not None:
                     metrics["lr"] = lr_i

@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import profiling
+
 DTYPE = torch.float32
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -32,7 +34,10 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
 
 def tensor(x, device: torch.device) -> torch.Tensor:
     """float32 tensor on ``device`` from numpy/array-like/scalars (copies
-    read-only numpy arrays, which torch cannot wrap)."""
+    read-only numpy arrays, which torch cannot wrap). Host data counts as one
+    ``host_copies`` (:mod:`.utils.profiling`)."""
+    if not isinstance(x, torch.Tensor) or x.is_cpu:
+        profiling.count("host_copies")
     if isinstance(x, np.ndarray) and not x.flags.writeable:
         x = x.copy()
     return torch.as_tensor(x, dtype=DTYPE, device=device)

@@ -59,6 +59,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import spatial as sp
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import terrain as tr
 from high_speed_quadrupedal_locomotion_by_irrl_torch.robot import gait
+from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import profiling
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils.rotation import quat_to_matrix
 
 OBS_DIM = 35
@@ -611,6 +612,7 @@ class _PreOut(NamedTuple):
     cube_active: torch.Tensor
 
 
+@profiling.span("env.pre")
 def _pre_substeps(cfg: EnvConfig, state: EnvState, action: torch.Tensor,
                   gen: torch.Generator):
     """Everything before the physics substeps: action pipeline, disturbances,
@@ -685,6 +687,7 @@ class _Diag(NamedTuple):
     toe_normal_force: torch.Tensor  # (B, 4)
 
 
+@profiling.span("env.step")
 def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
                gen: torch.Generator, tau_ff: torch.Tensor | None = None,
                pd_scale: torch.Tensor | None = None,
@@ -712,20 +715,22 @@ def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
             raise ValueError(f"step_batch runs the compliant no-attack physics; cfg.{flag} "
                              f"({what}) runs on the per-env step: use envs.blackpanther.step")
     pre, _ = _pre_substeps(cfg, states, actions, gen)
-    P = lanes.params_to_lanes(states.params)
-    rows = lambda x: None if x is None else x.T.contiguous()  # noqa: E731
-    gcT, gvT, toe, toe_vel, fnorm, fnormal, tauT = phys_cuda.control_step(
-        P, pd_torque.from_config(cfg), pre.gc.T.contiguous(), pre.gv.T.contiguous(),
-        pre.ptarget.T.contiguous(), states.torque_norm_last.T.contiguous(),
-        pre.base_wrench.T.contiguous(), cfg.substeps, cfg.contact_slip_vel,
-        cfg.contact_impulse_mass / cfg.simulation_dt, cfg.simulation_dt,
-        rows(tau_ff), rows(pd_scale), tr.rows(states.terrain) if cfg.terrain else None)
-    diag = _Diag(toe_pos=toe.permute(2, 0, 1), toe_vel=toe_vel.permute(2, 0, 1),
-                 toe_force_norm=fnorm.T, toe_normal_force=fnormal.T)
-    return _post_substeps(cfg, states, gen, gcT.T.contiguous(), gvT.T.contiguous(),
-                          tauT.T.contiguous(), diag, pre, ref_table)
+    with profiling.span("env.kernel"):
+        P = lanes.params_to_lanes(states.params)
+        rows = lambda x: None if x is None else x.T.contiguous()  # noqa: E731
+        gcT, gvT, toe, toe_vel, fnorm, fnormal, tauT = phys_cuda.control_step(
+            P, pd_torque.from_config(cfg), pre.gc.T.contiguous(), pre.gv.T.contiguous(),
+            pre.ptarget.T.contiguous(), states.torque_norm_last.T.contiguous(),
+            pre.base_wrench.T.contiguous(), cfg.substeps, cfg.contact_slip_vel,
+            cfg.contact_impulse_mass / cfg.simulation_dt, cfg.simulation_dt,
+            rows(tau_ff), rows(pd_scale), tr.rows(states.terrain) if cfg.terrain else None)
+        diag = _Diag(toe_pos=toe.permute(2, 0, 1), toe_vel=toe_vel.permute(2, 0, 1),
+                     toe_force_norm=fnorm.T, toe_normal_force=fnormal.T)
+        gc, gv, tau = gcT.T.contiguous(), gvT.T.contiguous(), tauT.T.contiguous()
+    return _post_substeps(cfg, states, gen, gc, gv, tau, diag, pre, ref_table)
 
 
+@profiling.span("env.step")
 def step(cfg: EnvConfig, states: EnvState, actions: torch.Tensor, gen: torch.Generator,
          tau_ff: torch.Tensor | None = None,
          pd_scale: torch.Tensor | None = None,
@@ -765,6 +770,7 @@ def step(cfg: EnvConfig, states: EnvState, actions: torch.Tensor, gen: torch.Gen
     return _post_substeps(cfg, states, gen, gc, gv, tau, diag, pre, ref_table)
 
 
+@profiling.span("env.post")
 def _post_substeps(cfg: EnvConfig, state: EnvState, gen: torch.Generator, gc, gv,
                    torque_applied, last_diag, pre: _PreOut, ref_table=None) -> StepOut:
     """Everything after the physics substeps: observation, reward, reference

@@ -41,6 +41,7 @@ import torch
 
 from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import lstm_cuda
+from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import profiling
 
 LOG2PI = math.log(2.0 * math.pi)
 
@@ -251,6 +252,7 @@ def forward(params: PolicyParams, obs: torch.Tensor, state: torch.Tensor,
     return ForwardOut(mean=mean, value=value, state=packed, logstd=params.logstd)
 
 
+@profiling.span("lstm.sequence")
 def sequence(params: PolicyParams, obs_seq: torch.Tensor, done_seq: torch.Tensor,
              init_state: torch.Tensor) -> ForwardOut:
     """BPTT forward over (T, B, 35) obs and (T, B) dones from the (B, S)

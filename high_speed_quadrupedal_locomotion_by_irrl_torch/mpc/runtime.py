@@ -32,6 +32,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import blackpanther as
 from high_speed_quadrupedal_locomotion_by_irrl_torch.mpc import ilqr, srb, trot
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
 from high_speed_quadrupedal_locomotion_by_irrl_torch.robot import gait
+from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import profiling
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils.rotation import quat_to_matrix
 
 
@@ -70,6 +71,7 @@ def speed_schedule(cfg: EnvConfig, vx: float):
     return env_cfg, scfg, kwargs
 
 
+@profiling.span("mpc.rollout")
 def mpc_rollout(cfg: EnvConfig, scfg: srb.SRBConfig, command, gen: torch.Generator,
                 n_steps: int = 500, torque_control: bool = False, stance_pd: float = 0.0,
                 swing_pd: float = 1.0, device=None) -> MPCRolloutLog:
@@ -95,29 +97,33 @@ def mpc_rollout(cfg: EnvConfig, scfg: srb.SRBConfig, command, gen: torch.Generat
                         done=buf(dtype=torch.bool), solve_cost=buf(), forces0=buf(4, 3),
                         torque=buf(12))
     for i in range(n_steps):
-        prob = srb.make_problem(cfg, state.gc, state.gv, cmd, state.current_time)
-        res = srb.solve(cfg, scfg, prob, controls=not torque_control)
-        st = state.replace(command=cmd, command_filtered=cmd)
-        if torque_control:
-            sm0 = srb.stance_mask(cfg, state.current_time)
-            tau_ff, pd_scale = srb.grf_to_torque(cfg, state.gc, res.forces[:, 0], sm0,
-                                                 stance_pd, swing_pd)
-            xy_shift = scfg.raibert_gain * (prob.v_meas - cmd[:, :2])
-            # swing tracking follows the schedule the solver planned stance forces for
-            sched_cmd = srb.sweep_command(cfg, scfg, prob)
-            q_ref = gait.gait_reference(cfg, sched_cmd, state.current_time, xy_shift,
-                                        scfg.touchdown_match).joint_ref
-            action = torch.clamp(q_ref - stand, -1.0, 1.0)
-            out = bp.step_batch(cfg, st, action, gen, tau_ff=tau_ff, pd_scale=pd_scale)
-        else:
-            action = torch.clamp(res.us[:, 0], -1.0, 1.0)
-            out = bp.step_batch(cfg, st, action, gen)
-        state = out.state
-        for dst, src in ((log.gc, state.gc), (log.gv, state.gv), (log.action, action),
-                         (log.reward, out.reward), (log.done, out.done),
-                         (log.solve_cost, res.cost), (log.forces0, res.forces[:, 0]),
-                         (log.torque, state.torque_applied)):
-            dst[i] = src
+        profiling.set_step(i)
+        with profiling.span("mpc.step"):
+            prob = srb.make_problem(cfg, state.gc, state.gv, cmd, state.current_time)
+            res = srb.solve(cfg, scfg, prob, controls=not torque_control)
+            st = state.replace(command=cmd, command_filtered=cmd)
+            if torque_control:
+                sm0 = srb.stance_mask(cfg, state.current_time)
+                tau_ff, pd_scale = srb.grf_to_torque(cfg, state.gc, res.forces[:, 0], sm0,
+                                                     stance_pd, swing_pd)
+                xy_shift = scfg.raibert_gain * (prob.v_meas - cmd[:, :2])
+                # swing tracking follows the schedule the solver planned stance forces for
+                sched_cmd = srb.sweep_command(cfg, scfg, prob)
+                q_ref = gait.gait_reference(cfg, sched_cmd, state.current_time, xy_shift,
+                                            scfg.touchdown_match).joint_ref
+                action = torch.clamp(q_ref - stand, -1.0, 1.0)
+                out = bp.step_batch(cfg, st, action, gen, tau_ff=tau_ff, pd_scale=pd_scale)
+            else:
+                action = torch.clamp(res.us[:, 0], -1.0, 1.0)
+                out = bp.step_batch(cfg, st, action, gen)
+            state = out.state
+            with profiling.span("mpc.log"):
+                for dst, src in ((log.gc, state.gc), (log.gv, state.gv), (log.action, action),
+                                 (log.reward, out.reward), (log.done, out.done),
+                                 (log.solve_cost, res.cost), (log.forces0, res.forces[:, 0]),
+                                 (log.torque, state.torque_applied)):
+                    dst[i] = src
+    profiling.set_step(None)
     if single:
         log = MPCRolloutLog(*(x[:, 0] for x in log))
     return log

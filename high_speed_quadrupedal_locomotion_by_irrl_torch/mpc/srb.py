@@ -34,6 +34,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as la
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
 from high_speed_quadrupedal_locomotion_by_irrl_torch.robot import gait
 from high_speed_quadrupedal_locomotion_by_irrl_torch.robot import kinematics as kin
+from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import profiling
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils.rotation import quat_to_matrix
 
 _G = 9.81
@@ -199,6 +200,7 @@ def _reference_states(cfg: EnvConfig, scfg: SRBConfig, prob: SRBProblem) -> torc
     return torch.cat([rpy, p, omega, v_world, torch.ones_like(yaw)[..., None]], dim=-1)
 
 
+@profiling.span("srb.make_problem")
 def make_problem(cfg: EnvConfig, gc: torch.Tensor, gv: torch.Tensor,
                  command: torch.Tensor, t0: torch.Tensor) -> SRBProblem:
     """SRB problems from generalized coordinates (B, 19), velocities (B, 18),
@@ -253,6 +255,7 @@ def _solver_consts(cfg: EnvConfig, scfg: SRBConfig, device: torch.device):
             t((scfg.r_force + 1e-9) * np.eye(NU)), pick, pick[NX:] - NU)
 
 
+@profiling.span("srb.solve")
 def solve(cfg: EnvConfig, scfg: SRBConfig, prob: SRBProblem,
           controls: bool = True) -> SRBResult:
     """One affine TV-LQR sweep + friction-cone projection + forward rollout
@@ -355,6 +358,7 @@ def _grf_to_controls(cfg: EnvConfig, command, xy_shift, ts, forces, sm, yaw_ref,
     return us.reshape(nb, T, NU)
 
 
+@profiling.span("srb.grf_to_torque")
 def grf_to_torque(cfg: EnvConfig, gc: torch.Tensor, f_world: torch.Tensor,
                   sm: torch.Tensor, stance_pd: float = 0.0,
                   swing_pd: float = 1.0) -> tuple[torch.Tensor, torch.Tensor]:

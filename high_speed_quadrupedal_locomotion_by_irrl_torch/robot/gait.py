@@ -19,6 +19,7 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch.config import EnvConfig
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys.model import EE_OFFSET, L_HIP
 from high_speed_quadrupedal_locomotion_by_irrl_torch.robot.kinematics import legs_ik
+from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import profiling
 
 # front legs sweep (+), hind legs (-) for the yaw component (Environment.hpp:1848)
 _ANTI_FLAG = np.array([1.0, 1.0, -1.0, -1.0])
@@ -122,6 +123,7 @@ def hip_y_offsets(cfg: EnvConfig) -> np.ndarray:
                      -L_HIP + cfg.lean_hind, L_HIP - cfg.lean_hind])
 
 
+@profiling.span("gait.reference")
 def gait_reference(cfg: EnvConfig, command: torch.Tensor, t: torch.Tensor,
                    xy_shift: torch.Tensor | None = None,
                    touchdown_match: bool = False) -> GaitRef:

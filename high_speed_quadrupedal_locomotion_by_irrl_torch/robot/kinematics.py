@@ -16,6 +16,14 @@ import torch
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys.model import (
     IS_RIGHT, L_CALF, L_HIP, L_THIGH,
 )
+from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import profiling
+
+
+def _is_right(device: torch.device) -> torch.Tensor:
+    """The (4,) right-leg flags on ``device``: a copy from the host at each
+    call, counted as one ``host_copies``."""
+    profiling.count("host_copies")
+    return torch.as_tensor(IS_RIGHT, device=device)
 
 
 def leg_ik(p: torch.Tensor, is_right: torch.Tensor,
@@ -47,7 +55,7 @@ def leg_ik(p: torch.Tensor, is_right: torch.Tensor,
 
 def legs_ik(targets: torch.Tensor) -> torch.Tensor:
     """(..., 4, 3) hip-frame toe targets (FR,FL,HR,HL) -> (..., 12) angles."""
-    is_right = torch.as_tensor(IS_RIGHT, device=targets.device)
+    is_right = _is_right(targets.device)
     return leg_ik(targets, is_right).reshape(targets.shape[:-2] + (12,))
 
 
@@ -90,11 +98,11 @@ def leg_jacobian(q: torch.Tensor, is_right: torch.Tensor,
 
 def legs_fk(q: torch.Tensor) -> torch.Tensor:
     """(..., 12) joint angles -> (..., 4, 3) hip-frame toe positions."""
-    is_right = torch.as_tensor(IS_RIGHT, device=q.device)
+    is_right = _is_right(q.device)
     return leg_fk(q.reshape(q.shape[:-1] + (4, 3)), is_right)
 
 
 def legs_jacobian(q: torch.Tensor) -> torch.Tensor:
     """(..., 12) joint angles -> (..., 4, 3, 3) leg Jacobians (FR, FL, HR, HL)."""
-    is_right = torch.as_tensor(IS_RIGHT, device=q.device)
+    is_right = _is_right(q.device)
     return leg_jacobian(q.reshape(q.shape[:-1] + (4, 3)), is_right)

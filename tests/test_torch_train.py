@@ -9,6 +9,7 @@ own YAML copies against the JAX package's.
 
 import dataclasses
 import glob
+import json
 import os
 
 import jax
@@ -253,16 +254,18 @@ def test_loggers_and_run_dir(tmp_path, capsys):
 
 
 def test_profiling_helpers(tmp_path):
-    meter = tprof.RateMeter(alpha=0.5)
-    assert meter.tick(10) > 0 and meter.tick(10) > 0
-    got = []
-    with tprof.timed("x", sink=lambda label, dt: got.append((label, dt))):
-        pass
-    assert got[0][0] == "x" and got[0][1] >= 0
+    """``trace`` writes the spans opened inside it as rows of ``trace.json``."""
+    tprof.take()
     with tprof.trace(str(tmp_path / "trace")):
-        torch.ones(4).sum()
-    assert os.path.getsize(os.path.join(tmp_path, "trace", "trace.json")) > 0
+        with tprof.span("test.outer"):
+            with tprof.span("test.inner"):
+                torch.ones(4).sum()
+    with open(os.path.join(tmp_path, "trace", "trace.json")) as f:
+        rows = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"test.outer", "test.inner"} <= rows
+    assert [s.name for s in tprof.take().spans] == ["test.outer", "test.inner"]
     assert not hasattr(tprof, "enable_compile_cache")
+    assert not hasattr(tprof, "RateMeter") and not hasattr(tprof, "timed")
 
 
 def test_port_modules_import_no_jax():
