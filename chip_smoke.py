@@ -2469,7 +2469,7 @@ def _torch_ops_by_site(cfg, params, cmds, gen) -> dict:
         lambda n: ev.policy_rollout(cfg, params, cmds, gen, n, device=DEVICE),
         {"policy": (lstm, "deterministic_action"), "step_batch": (bp, "step_batch"),
          "pre": (bp, "_pre_substeps"), "physics_call": (phys_cuda, "control_step"),
-         "post": (bp, "_post_substeps")})
+         "post": (bp, "_post_graphs")})
     return {"total": step["total"], "policy_forward": step["policy"],
             "step_batch_pre": step["pre"], "step_batch_physics_call": step["physics_call"],
             "step_batch_post": step["post"],
@@ -3788,7 +3788,7 @@ def phase_ppo3() -> tuple[dict, dict]:
 def _perenv_sites(fn, hard: bool) -> dict:
     if fn is bp.step_batch:
         return {"pre": (bp, "_pre_substeps"), "physics_call": (phys_cuda, "control_step"),
-                "post": (bp, "_post_substeps")}
+                "post": (bp, "_post_graphs")}
     dense = ({"substep_hard": (dyn, "substep_hard"), "pgs": (hard_contact, "solve_impulses")}
              if hard else {"forward_dynamics": (dyn, "forward_dynamics"),
                            "integrate": (dyn, "integrate")})

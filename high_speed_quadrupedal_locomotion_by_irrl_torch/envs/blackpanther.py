@@ -14,7 +14,8 @@ generator in the same order:
 
 * :func:`step_batch`, the batch-in-lanes path: the substeps fused into one
   call of the hand-written CUDA kernel (:func:`..ops.phys_cuda.control_step`),
-  compliant contact with a vertical normal on terrain;
+  compliant contact with a vertical normal on terrain, and on the card the
+  rest of the step replayed as one CUDA graph (:mod:`.post_graph`);
 * :func:`step`, the counterpart of JAX's ``vmap(step)``: the dense per-env
   physics of :mod:`..phys.dynamics` substep by substep (plain PyTorch, as JAX
   computes it outside any Pallas kernel), with the terrain's own normal, hard
@@ -51,6 +52,7 @@ import torch
 
 from high_speed_quadrupedal_locomotion_by_irrl_torch import device as dev_mod
 from high_speed_quadrupedal_locomotion_by_irrl_torch.config import EnvConfig
+from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import post_graph
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import pd_torque, phys_cuda
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as lanes
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import contact as ct
@@ -149,10 +151,11 @@ def _obs_std_np() -> np.ndarray:
                            np.full(3, 0.7), np.full(3, 3.0)])
 
 
-@functools.lru_cache(maxsize=16)
+@functools.cache
 def _consts(cfg: EnvConfig, device: torch.device) -> _Consts:
     """Read-only constant tensors, made once per config and device so the
-    step issues no host-to-device copies."""
+    step issues no host-to-device copies; kept for the process's life, since
+    the step's CUDA graphs (:mod:`.post_graph`) read them by address."""
     t = lambda x: dev_mod.tensor(x, device)  # noqa: E731
     return _Consts(
         obs_mean=t(_obs_mean_np(cfg)), obs_std=t(_obs_std_np()),
@@ -697,7 +700,10 @@ def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
     The cfg.substeps (8) physics substeps, each after the PD torque from the
     fresh state, are one call of :func:`..ops.phys_cuda.control_step`: one
     launch of the CUDA kernel for tensors on the card, the plain loop on the
-    CPU. Only the last substep's torque and toe rows are used after it.
+    CPU. Only the last substep's torque and toe rows are used after it. The
+    work after the substeps (observation, reward, references, termination,
+    the auto-reset) is, on the card, one CUDA-graph replay
+    (:mod:`.post_graph`): the same kernels and random draws as the eager call.
 
     ``tau_ff``/``pd_scale`` ((B, 12) each, optional) are the Convert2Torque
     actuation of the JAX ``step``: a joint-torque feedforward and a scale on
@@ -727,7 +733,7 @@ def step_batch(cfg: EnvConfig, states: EnvState, actions: torch.Tensor,
         diag = _Diag(toe_pos=toe.permute(2, 0, 1), toe_vel=toe_vel.permute(2, 0, 1),
                      toe_force_norm=fnorm.T, toe_normal_force=fnormal.T)
         gc, gv, tau = gcT.T.contiguous(), gvT.T.contiguous(), tauT.T.contiguous()
-    return _post_substeps(cfg, states, gen, gc, gv, tau, diag, pre, ref_table)
+    return _post_graphs(cfg, states, gen, gc, gv, tau, diag, pre, ref_table)
 
 
 @profiling.span("env.step")
@@ -837,6 +843,10 @@ def _post_substeps(cfg: EnvConfig, state: EnvState, gen: torch.Generator, gc, gv
             "ep_len": new_state.ep_len, "base_height": gc[:, 2], "contact": contact_flag}
     return StepOut(state=out_state, obs=normalize_obs(cfg, out_state.obs_double),
                    reward=reward, done=done, info=info)
+
+
+# step_batch's call of _post_substeps: a CUDA-graph replay on the card (envs/post_graph)
+_post_graphs = post_graph.PostGraphs(_post_substeps)
 
 
 def _where(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:

@@ -10,6 +10,7 @@ touchdown-matched profile (``touchdown_match``).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -29,6 +30,23 @@ class GaitRef(NamedTuple):
     joint_ref: torch.Tensor  # (B, 12)
     toe: torch.Tensor        # (B, 4, 3) toe targets in hip frames
     ee_ref: torch.Tensor     # (B, 12) end-effector reference relative to body center
+
+
+class _Consts(NamedTuple):
+    phase_offsets: torch.Tensor  # (4,)
+    anti_flag: torch.Tensor      # (4,)
+    hip_y_offsets: torch.Tensor  # (4,)
+    ee_offset: torch.Tensor      # (4, 3)
+
+
+@functools.cache
+def _consts(cfg: EnvConfig, device: torch.device) -> _Consts:
+    """The gait's constant tensors, made once per config and device so a
+    reference issues no host-to-device copies; kept for the process's life,
+    since the env step's CUDA graphs read them by address."""
+    t = lambda x: dev_mod.tensor(x, device)  # noqa: E731
+    return _Consts(phase_offsets=t(cfg.phase_offsets), anti_flag=t(_ANTI_FLAG),
+                   hip_y_offsets=t(hip_y_offsets(cfg)), ee_offset=t(EE_OFFSET))
 
 
 def _bezier_blend(phase: torch.Tensor) -> torch.Tensor:
@@ -64,7 +82,7 @@ def toe_targets(cfg: EnvConfig, command: torch.Tensor, t: torch.Tensor,
     (``gait.toe_targets``): a linear stance sweep, and a late-swing retraction
     whose rate at touchdown equals the stance sweep's, so the foot lands
     moving with the ground. The default is the reference's generator."""
-    dev = command.device
+    c = _consts(cfg, command.device)
     gait_step = command[..., 0] * cfg.lam * cfg.period
     if cfg.wildcat:
         gait_step = -gait_step
@@ -72,9 +90,8 @@ def toe_targets(cfg: EnvConfig, command: torch.Tensor, t: torch.Tensor,
     rot_step = command[..., 2] * cfg.period * 0.4
     up = swing_up_height(cfg, command)
 
-    offsets = dev_mod.tensor(cfg.phase_offsets, dev)
-    phase = torch.remainder(t[..., None] + offsets * cfg.period, cfg.period) / cfg.period
-    anti = dev_mod.tensor(_ANTI_FLAG, dev)
+    phase = torch.remainder(t[..., None] + c.phase_offsets * cfg.period, cfg.period) / cfg.period
+    anti = c.anti_flag
     half = torch.stack([
         (gait_step / 2.0)[..., None].expand(phase.shape),
         side_step[..., None] / 2.0 + anti * rot_step[..., None] / 2.0,
@@ -108,7 +125,7 @@ def raibert_weight(cfg: EnvConfig, t: torch.Tensor, touchdown_match: bool = Fals
     time t (...): the swing blend b_sw in swing, 1 - b_st in stance, so a
     weighted shift moves only the Bezier touchdown endpoint (the JAX
     package's ``gait.raibert_weight``)."""
-    offsets = dev_mod.tensor(cfg.phase_offsets, t.device)
+    offsets = _consts(cfg, t.device).phase_offsets
     phase = torch.remainder(t[..., None] + offsets * cfg.period, cfg.period) / cfg.period
     in_stance = phase < cfg.lam
     r_st = torch.clamp(phase / cfg.lam, 0.0, 1.0)
@@ -131,14 +148,14 @@ def gait_reference(cfg: EnvConfig, command: torch.Tensor, t: torch.Tensor,
     command (B, 3). xy_shift: a horizontal Raibert foothold correction, (B, 2)
     added to every toe target of an env (the SRB runtime's form) or (B, 4, 2)
     per leg (the whole-body MPC's, weighted by :func:`raibert_weight`)."""
-    dev = command.device
+    c = _consts(cfg, command.device)
     toe = toe_targets(cfg, command, t, touchdown_match)
     if xy_shift is not None:
         if xy_shift.dim() < toe.dim():
             xy_shift = xy_shift[..., None, :]
         toe = torch.cat([toe[..., :2] + xy_shift, toe[..., 2:]], dim=-1)
     ik_in = toe.clone()
-    ik_in[..., 1] = ik_in[..., 1] + dev_mod.tensor(hip_y_offsets(cfg), dev)
+    ik_in[..., 1] = ik_in[..., 1] + c.hip_y_offsets
     joint_ref = legs_ik(ik_in)
-    ee_ref = (toe + dev_mod.tensor(EE_OFFSET, dev)).reshape(toe.shape[:-2] + (12,))
+    ee_ref = (toe + c.ee_offset).reshape(toe.shape[:-2] + (12,))
     return GaitRef(joint_ref=joint_ref, toe=toe, ee_ref=ee_ref)

@@ -9,6 +9,7 @@ q = [abad (about +x), hip (about -y), knee (about -y)].
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -19,9 +20,11 @@ from high_speed_quadrupedal_locomotion_by_irrl_torch.phys.model import (
 from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import profiling
 
 
+@functools.cache
 def _is_right(device: torch.device) -> torch.Tensor:
-    """The (4,) right-leg flags on ``device``: a copy from the host at each
-    call, counted as one ``host_copies``."""
+    """The (4,) right-leg flags on ``device``, made once a device (the copy
+    from the host counts as one ``host_copies``) and kept for the process's
+    life, since the env step's CUDA graphs read them by address."""
     profiling.count("host_copies")
     return torch.as_tensor(IS_RIGHT, device=device)
 

@@ -16,7 +16,10 @@ them out must equal, bit for bit, a feedforward of 0 and a scale of 1. The
 control step on terrain (the heightmap lookup under each toe and base corner)
 is held against its plain loop at chain (c)'s tolerances, and with a height
 scale of 0 must give the flat kernel's bits; so is the control step on the
-analytic fractal (its own instantiation of the kernel).
+analytic fractal (its own instantiation of the kernel). ``step_batch``'s
+post-physics work replayed as a CUDA graph (``envs/post_graph``) must give,
+bit for bit, the states, observations, rewards, dones and generator states of
+the same work issued op by op.
 """
 
 import numpy as np
@@ -24,12 +27,16 @@ import pytest
 import torch
 
 from high_speed_quadrupedal_locomotion_by_irrl_torch import config
+from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import blackpanther as bp
+from high_speed_quadrupedal_locomotion_by_irrl_torch.envs import post_graph, reftraj
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import io as mio
 from high_speed_quadrupedal_locomotion_by_irrl_torch.models import lstm
+from high_speed_quadrupedal_locomotion_by_irrl_torch.mpc import runtime
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import lstm_cuda, pd_torque, phys_cuda
 from high_speed_quadrupedal_locomotion_by_irrl_torch.ops import phys_lanes as lanes
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import model as mdl
 from high_speed_quadrupedal_locomotion_by_irrl_torch.phys import terrain
+from high_speed_quadrupedal_locomotion_by_irrl_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -683,3 +690,152 @@ def test_rows_wrapper_refuses_bad_input(cuda):
     with pytest.raises(RuntimeError, match="requires grad"):
         lstm_cuda.lstm_cell_pair_rows(w0, w1, x0.detach().clone().requires_grad_(), x1, c0, h0,
                                       c1, h1)
+
+
+# --- step_batch's post-physics work as CUDA-graph replays (envs/post_graph) -------
+
+def _post_cfg(variant: str, B: int, device):
+    """(config, RefTraj table or None): the training config on flat ground, on
+    the sampled heightmap, on the analytic fractal, or following a table."""
+    cfg = config.train_default().replace(num_envs=B, use_lanes_physics=True)
+    if variant == "terrain":
+        return cfg.replace(terrain=True), None
+    if variant == "analytic":
+        return cfg.replace(terrain=True, terrain_sampled=False), None
+    if variant == "reftraj":
+        cfg = cfg.replace(manual_traj=False)
+        return cfg, reftraj.synthesize(cfg, np.array([[1.0, 0.0, 0.0], [3.0, 0.0, 0.5]]), 900,
+                                       device=device)
+    return cfg, None
+
+
+def _steps(cfg, table, n, seed, device):
+    """n step_batch calls from env_init under random actions, every eighth
+    step dropping a quarter of the envs to 5 cm so they terminate and
+    auto-reset; (each step's output, the env generator's state after)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    act = torch.Generator(device=device).manual_seed(seed + 1)
+    state = bp.env_init(cfg, cfg.num_envs, gen, device, ref_table=table)
+    outs = []
+    for t in range(n):
+        profiling.set_step(t)
+        if t % 8 == 7:
+            low = torch.rand(cfg.num_envs, generator=act, device=device) < 0.25
+            state = state.replace(gc=torch.cat([state.gc[:, :2], torch.where(
+                low, 0.05, state.gc[:, 2])[:, None], state.gc[:, 3:]], dim=-1))
+        a = 2.0 * torch.rand((cfg.num_envs, 12), generator=act, device=device) - 1.0
+        outs.append(bp.step_batch(cfg, state, a, gen, ref_table=table))
+        state = outs[-1].state
+    profiling.set_step(None)
+    return outs, gen.get_state()
+
+
+def _bitwise(got, want):
+    g, w = [], []
+    assert post_graph._flatten(got, g) == post_graph._flatten(want, w)
+    for a, b in zip(g, w):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def _counts(rec) -> dict:
+    """Each counter's sum over the control steps."""
+    out = {}
+    for c in rec.counts:
+        if c.step is not None:
+            out[c.name] = out.get(c.name, 0) + c.n
+    return out
+
+
+@pytest.mark.parametrize("variant,B,n", [("flat", 1024, 64), ("terrain", 256, 16),
+                                         ("analytic", 256, 16), ("reftraj", 256, 16)])
+def test_post_graph_replays_match_eager_steps(cuda, monkeypatch, variant, B, n):
+    """n steps with auto-resets: the graphed step and the eager one give the
+    same bits at every step (every state field, obs, reward, done, info) and
+    leave the env generator in the same state; the graph is captured once,
+    at the second step, and replayed at every later one. (Following a table,
+    env_init's state holds the filtered command as a view of the table's
+    rows, a layout of its own: the steady layout's warm-up is the second
+    step and its capture the third.)"""
+    cfg, table = _post_cfg(variant, B, cuda)
+    monkeypatch.setattr(bp, "_post_graphs", bp._post_substeps)
+    want, want_gen = _steps(cfg, table, n, 7, cuda)
+    graphs = post_graph.PostGraphs(bp._post_substeps)
+    monkeypatch.setattr(bp, "_post_graphs", graphs)
+    profiling.take()
+    with profiling.recording():
+        got, got_gen = _steps(cfg, table, n, 7, cuda)
+    rec = profiling.take()
+    assert sum(int(o.done.sum()) for o in want) > 0, "no env terminated: the reset went untested"
+    for g, w in zip(got, want):
+        _bitwise(g, w)
+    assert torch.equal(got_gen, want_gen)
+    at = lambda name: [c.step for c in rec.counts if c.name == name]  # noqa: E731
+    first = 2 if variant == "reftraj" else 1
+    assert at("post_graph_captures") == [first]
+    assert at("post_graph_replays") == list(range(first + 1, n))
+    assert _counts(rec).get("host_copies", 0) == 0
+
+
+def test_post_graph_fresh_fleets_match_eager(cuda, monkeypatch):
+    """Three fleets, each with fresh robot parameters and its own generator,
+    through one wrapper: each matches its eager steps bit for bit, hands back
+    its own parameter tensors, and captures once; two graphs are kept."""
+    cfg, _ = _post_cfg("flat", 512, cuda)
+    graphs = post_graph.PostGraphs(bp._post_substeps)
+    for seed in (11, 12, 13):
+        monkeypatch.setattr(bp, "_post_graphs", bp._post_substeps)
+        want, want_gen = _steps(cfg, None, 6, seed, cuda)
+        monkeypatch.setattr(bp, "_post_graphs", graphs)
+        profiling.take()
+        with profiling.recording():
+            got, got_gen = _steps(cfg, None, 6, seed, cuda)
+        counts = _counts(profiling.take())
+        for g, w in zip(got, want):
+            _bitwise(g, w)
+        assert torch.equal(got_gen, want_gen)
+        assert (counts.get("post_graph_captures"), counts.get("post_graph_replays")) == (1, 4)
+        first = got[0].state.params
+        assert all(getattr(o.state.params, f) is getattr(first, f)
+                   for o in got for f in ("mass", "com", "inertia", "friction"))
+    assert len(graphs._graphs) == 2
+
+
+def test_post_graph_fleet_with_torque_inputs_matches_eager(cuda, monkeypatch):
+    """The SRB fleet's closed loop (Convert2Torque ``tau_ff`` and ``pd_scale``
+    into the kernel, manual mode) logs the same bits with the graphed step as
+    with the eager one."""
+    env_cfg, scfg, kw = runtime.high_speed_setup(config.test_default())
+    cmds = np.stack([np.linspace(0.5, 3.0, 256), np.zeros(256), np.zeros(256)], -1)
+    logs = []
+    for post in (bp._post_substeps, post_graph.PostGraphs(bp._post_substeps)):
+        monkeypatch.setattr(bp, "_post_graphs", post)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        logs.append(runtime.mpc_rollout(env_cfg, scfg, cmds, gen, 12, device=cuda, **kw))
+    _bitwise(logs[1], logs[0])
+
+
+def test_post_graph_stays_eager_under_grad(cuda, monkeypatch):
+    """An input that requires grad keeps the wrapper on the eager function:
+    the same values as ``_post_substeps``, no capture, no key kept."""
+    cfg, _ = _post_cfg("flat", 64, cuda)
+    got = {}
+
+    def keep(*args):
+        got["args"], got["gen"] = args, args[2].get_state()
+        return bp._post_substeps(*args)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    state = bp.env_init(cfg, 64, gen, cuda)
+    monkeypatch.setattr(bp, "_post_graphs", keep)
+    bp.step_batch(cfg, state, torch.zeros(64, 12, device=cuda), gen)
+    args = got["args"][:3] + (got["args"][3].clone().requires_grad_(),) + got["args"][4:]
+    gen.set_state(got["gen"])
+    want = bp._post_substeps(*args)
+    graphs = post_graph.PostGraphs(bp._post_substeps)
+    for _ in range(3):
+        gen.set_state(got["gen"])
+        out = graphs(*args)
+        g, w = [], []
+        post_graph._flatten(out, g)
+        post_graph._flatten(want, w)
+        assert all(torch.equal(a.detach(), b.detach()) for a, b in zip(g, w))
+    assert not graphs._graphs

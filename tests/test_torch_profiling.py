@@ -173,9 +173,9 @@ def test_ppo_update_records_its_span_tree_once_a_step():
     for c in rec.counts:
         assert c.name == "host_copies"
         copies[(c.step, rec.spans[c.span].name)] += c.n
-    # from step 1 on (step 0 may fill constant caches): the gait's copies, alike every step
+    # from step 1 on (step 0 may fill constant caches) no copy from the host at all
     per_step = [{k[1]: n for k, n in copies.items() if k[0] == t} for t in (1, 2)]
-    assert per_step[0] == per_step[1] and set(per_step[0]) == {"gait.reference"}
+    assert per_step == [{}, {}]
 
 
 def test_mpc_rollout_records_its_span_tree_once_a_step():
@@ -202,6 +202,6 @@ def test_mpc_rollout_records_its_span_tree_once_a_step():
     copies = collections.Counter()
     for c in rec.counts:
         copies[(c.step, rec.spans[c.span].name)] += c.n
+    # the gait's and the leg kinematics' constants are cached: no copy from the host a step
     per_step = [{k[1]: n for k, n in copies.items() if k[0] == t} for t in (1, 2)]
-    assert per_step[0] == per_step[1]
-    assert set(per_step[0]) == {"srb.solve", "srb.grf_to_torque", "gait.reference"}
+    assert per_step == [{}, {}]
